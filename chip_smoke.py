@@ -13,7 +13,17 @@ Phases, each of which raises on failure (nothing is caught):
   5. main path at full width (EmageAudioConfig(), reference tokenizer widths, random
      weights from a seed): batch 8 x 20 s through EmageAudioModel.inference and
      EmageVQModel.decode, counting K1 launches; then one timed call at batch 128 x 60 s;
-  6. the CLI (python -m pantomatrix_tpu_torch.cli.test_emage --random_init) on a 3 s WAV.
+  6. the CLI (python -m pantomatrix_tpu_torch.cli.test_emage --random_init) on a 3 s WAV;
+  7. K2 (LSTM sequence, one direction) against its plain PyTorch version on the card, at
+     the test shapes (atol 1e-5) and the CaMN/DisCo path shapes (T = 421, B = 8 and 64,
+     H = 512), where both are also held against a float64 run; CUDA-event timings of the
+     kernel, the plain version and, as the library yardstick, cuDNN's
+     torch.nn.LSTM(1024, 512) for one layer and direction beside matmul projection + K2;
+  8. parity: tiny CaMN and DisCo configs on the CPU (plain K2) and on the card;
+  9. CaMN at full width (CamnAudioConfig(), random weights from a seed): batch 8 x 28.4 s
+     once, checking shapes and 16 K2 launches, then timed calls at batch 8 and 64;
+ 10. DisCo at full width, the same, with 8 K2 launches;
+ 11. the CaMN CLI (python -m pantomatrix_tpu_torch.cli.test_camn --random_init) on a 3 s WAV.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -45,6 +55,12 @@ K1_SHAPES = [
     (128 * 64, 256, 256), (128 * 60, 256, 256), (128 * 1800, 256, 256),
 ]
 K1_HEADLINE = (128 * 1800, 256, 256)
+# (T, B, H): the K2 tests' shapes, then CaMN/DisCo's at 28.4 s (421 frames at 15 fps)
+K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512)]
+K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512)]
+K2_HEADLINE = (421, 64, 512)
+K2_ATOL = 1e-5
+LSTM_SECONDS, LSTM_SAMPLES, LSTM_FRAMES = 28.4, 454400, 421
 PARITY_ATOL = 1e-4
 # decoded rotations pass through the reference's sqrt-based matrix -> quaternion step,
 # which turns ~1e-6 float32 differences upstream into up to ~1e-3 near a zero
@@ -214,7 +230,7 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     launch count, then time one call at ``timed`` after a warm-up."""
     from pantomatrix_tpu_torch.cli.test_emage import load_models
     from pantomatrix_tpu_torch.models.emage import _select_decode_inputs
-    from pantomatrix_tpu_torch.ops import vq_cuda
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
 
     t0 = time.time()
     model, vq = load_models(None, True, device)
@@ -236,9 +252,11 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     bs, seconds = counted
     frames = seconds * 30
     rounds = (frames - cfg.seed_frames) // (cfg.pose_length - cfg.seed_frames)
-    vq_cuda.launches = 0
+    vq_cuda.launches = lstm_cuda.launches = 0
     dec, wall = generate(bs, seconds)
     launches = vq_cuda.launches
+    if lstm_cuda.launches != 0:
+        raise AssertionError(f"main path: K2 launched {lstm_cuda.launches} times, want 0")
     expect = {"motion_axis_angle": (bs, frames, 165), "expression": (bs, frames, 100),
               "trans": (bs, frames, 3)}
     for k, shape in expect.items():
@@ -262,30 +280,188 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     return launches
 
 
-def phase_cli(device="cuda"):
+def k2_bound(t: int, b: int, h: int):
+    """Least time for one direction on an H100: 2*T*B*4H*H FMA work plus ~10*T*B*H gate
+    operations, against xp and out moved once and W_hh read once."""
+    flops = 2.0 * t * b * 4 * h * h + 10.0 * t * b * h
+    nbytes = 4.0 * (t * b * 4 * h + t * b * h + 4 * h * h)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k2(device):
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator().manual_seed(2)
+    rows = []
+    with strict_fp32():
+        for t, b, h in K2_TEST_SHAPES:  # the JAX kernel test's inputs
+            xp = torch.randn(t, b, 4 * h, generator=g).to(device)
+            w_hh = (0.2 * torch.randn(4 * h, h, generator=g)).to(device)
+            got = lstm_cuda.lstm_direction(xp, w_hh, h)
+            want = lstm_cuda.lstm_direction_plain(xp, w_hh, h)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if got.shape != (t, b, h) or not err <= K2_ATOL:
+                raise AssertionError(f"K2 {(t, b, h)}: shape {tuple(got.shape)}, "
+                                     f"max abs err {err} > {K2_ATOL}")
+            rows.append({"shape": [t, b, h], "max_abs_err": err})
+            log(f"K2 lstm_sequence {rows[-1]}")
+        for t, b, h in K2_PATH_SHAPES:
+            # a torch-default layer (U(+-1/sqrt(H))) on N(0, 1) input of the inner layers'
+            # width 2H, as CaMN/DisCo's LSTMs see it
+            bound = h ** -0.5
+            u = lambda *shape: ((torch.rand(*shape, generator=g) * 2 - 1) * bound).to(device)
+            w_ih, w_hh, b_ih, b_hh = u(4 * h, 2 * h), u(4 * h, h), u(4 * h), u(4 * h)
+            x = torch.randn(t, b, 2 * h, generator=g).to(device)
+            xp = torch.matmul(x, w_ih.T) + (b_ih + b_hh)
+            got = lstm_cuda.lstm_direction(xp, w_hh, h)
+            want = lstm_cuda.lstm_direction_plain(xp, w_hh, h)
+            exact = lstm_cuda.lstm_direction_plain(xp.double(), w_hh.double(), h)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            err64 = float((got.double() - exact).abs().max())
+            plain_err64 = float((want.double() - exact).abs().max())
+            if not err64 <= 2 * plain_err64 + 1e-6:
+                raise AssertionError(f"K2 {(t, b, h)}: kernel off float64 by {err64}, plain "
+                                     f"fp32 by {plain_err64}")
+            row = {"shape": [t, b, h], "max_abs_err": err, "kernel_err_vs_fp64": err64,
+                   "plain_err_vs_fp64": plain_err64}
+            row["kernel_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction(xp, w_hh, h), reps=10)
+            row["plain_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction_plain(xp, w_hh, h),
+                                      reps=3, warmup=1)
+            # the yardstick computes projection + recurrence, so beside it: matmul + K2
+            cudnn = torch.nn.LSTM(2 * h, h).to(device)
+            with torch.no_grad():
+                for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                                ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+                    getattr(cudnn, name).copy_(w)
+                lib_out, _ = cudnn(x)
+                row["library_max_abs_diff"] = float((lib_out - got).abs().max())
+                row["library_ms"] = cuda_ms(lambda: cudnn(x), reps=10)
+            row["projection_plus_kernel_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction(
+                torch.matmul(x, w_ih.T) + (b_ih + b_hh), w_hh, h), reps=10)
+            row["us_per_step"] = 1e3 * row["kernel_ms"] / t
+            row["bound_ms"], row["bound_by"] = k2_bound(t, b, h)
+            rows.append(row)
+            log(f"K2 lstm_sequence {row}")
+    return rows
+
+
+def run_tiny_lstm(device):
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+
+    # the SMALL config of tests/test_models_camn_disco.py
+    small = dict(audio_f=128, speaker_f=8, speaker_dims=4, hidden_size=48, n_layer=2,
+                 pose_dims=258, body_dims=78, hands_dims=180, dropout_prob=0.0)
+    audio = torch.rand(2, 16000, generator=torch.Generator().manual_seed(8)) * 2 - 1
+    spk = torch.tensor([[0], [3]])
+    seed = torch.rand(2, 14, 258, generator=torch.Generator().manual_seed(9)) * 2 - 1
+    camn = CamnAudioModel(CamnAudioConfig(**small), seed=10, device=device)
+    disco = DiscoAudioModel(DiscoAudioConfig(**small), seed=11, device=device)
+    outs = {}
+    for name, model, kw in (("camn", camn, {}), ("camn_seed", camn, {"seed_motion": seed}),
+                            ("disco", disco, {})):
+        kw = {k: v.to(device) for k, v in kw.items()}
+        out = model(audio.to(device), spk.to(device), **kw)
+        outs.update({f"{name}.{k}": v.cpu() for k, v in out.items()})
+    return outs
+
+
+def phase_lstm_parity():
+    cpu, gpu = run_tiny_lstm("cpu"), run_tiny_lstm("cuda")
+    worst = {}
+    for k in cpu:
+        atol = PARITY_ROT_ATOL if k.endswith("motion_axis_angle") else PARITY_ATOL
+        worst[k] = float((cpu[k] - gpu[k]).abs().max())
+        if cpu[k].shape != gpu[k].shape or not worst[k] <= atol:
+            raise AssertionError(f"LSTM parity: {k} differs by {worst[k]} > {atol}")
+    log(f"parity CPU vs GPU (tiny CaMN/DisCo, full fp32): max abs err {worst}")
+
+
+def phase_lstm_path(name, card, counted_bs=8, timed=(8, 64)):
+    """Run CaMN or DisCo at full width on ``counted_bs`` x 28.4 s once, checking the
+    outputs and the K2 launch count, then time one warm call per batch in ``timed``."""
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+
+    model_cls, cfg_cls, want_launches = {
+        "camn": (CamnAudioModel, CamnAudioConfig, 16),
+        "disco": (DiscoAudioModel, DiscoAudioConfig, 8)}[name]
+    model = model_cls(cfg_cls(), seed=3, device="cuda")
+    g = torch.Generator().manual_seed(4)
+
+    def generate(bs):
+        audio = (torch.rand(bs, LSTM_SAMPLES, generator=g) * 2 - 1).cuda()
+        spk = torch.zeros((bs, 1), dtype=torch.long, device="cuda")
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = model(audio, spk)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t_start
+
+    lstm_cuda.launches = vq_cuda.launches = 0
+    out, wall = generate(counted_bs)
+    launches = lstm_cuda.launches
+    expect = {"motion": (counted_bs, LSTM_FRAMES, 258),
+              "motion_axis_angle": (counted_bs, LSTM_FRAMES, 165)}
+    for k, shape in expect.items():
+        if tuple(out[k].shape) != shape or not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{name} path: {k} {tuple(out[k].shape)} (want {shape}), "
+                                 f"finite={bool(torch.isfinite(out[k]).all())}")
+    if launches != want_launches or vq_cuda.launches != 0:
+        raise AssertionError(f"{name} path: K2 launched {launches} times (want "
+                             f"{want_launches}), K1 {vq_cuda.launches} (want 0)")
+    log(f"{name} path: batch {counted_bs} x {LSTM_SECONDS} s -> {expect}, finite; K2 launches "
+        f"{launches}; first call {wall:.3f} s")
+    for bs in timed:
+        generate(bs)  # warm-up
+        lstm_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        _, wall = generate(bs)
+        result = {"model": name, "batch": bs, "seconds": LSTM_SECONDS, "wall_s": wall,
+                  "realtime_factor": bs * LSTM_SECONDS / wall, "k2_launches": lstm_cuda.launches,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        log(f"{name} path timed: {json.dumps(result)}")
+    return launches
+
+
+def write_wav(path: Path, seconds: int = 3):
+    t = np.arange(seconds * 16000) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 1.5 * t)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((x * 32767).astype("<i2").tobytes())
+
+
+def run_cli(module: str, want: dict):
+    """Run ``python -m <module> --random_init`` on a 3 s WAV and check the saved npz."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir, out_dir = Path(tmp, "audio"), Path(tmp, "out")
         audio_dir.mkdir()
-        t = np.arange(3 * 16000) / 16000
-        x = 0.3 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 1.5 * t)
-        with wave.open(str(audio_dir / "clip.wav"), "wb") as w:
-            w.setnchannels(1)
-            w.setsampwidth(2)
-            w.setframerate(16000)
-            w.writeframes((x * 32767).astype("<i2").tobytes())
+        write_wav(audio_dir / "clip.wav")
         r = subprocess.run(
-            [sys.executable, "-m", "pantomatrix_tpu_torch.cli.test_emage", "--random_init",
-             "--audio_folder", str(audio_dir), "--save_folder", str(out_dir),
-             "--device", device],
+            [sys.executable, "-m", module, "--random_init", "--audio_folder", str(audio_dir),
+             "--save_folder", str(out_dir), "--device", "cuda"],
             cwd=str(HERE), capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
-            raise RuntimeError(f"CLI failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+            raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
         out = np.load(out_dir / "clip_output.npz")
-        frames = 3 * 30
-        for k, width in (("poses", 165), ("expressions", 100), ("trans", 3)):
-            if out[k].shape != (frames, width) or not np.isfinite(out[k]).all():
-                raise AssertionError(f"CLI: {k} {out[k].shape}, want ({frames}, {width})")
-        log(f"CLI: {r.stdout.strip()}")
+        for k, shape in want.items():
+            if out[k].shape != shape or not np.isfinite(out[k]).all():
+                raise AssertionError(f"{module}: {k} {out[k].shape}, want {shape}")
+        log(f"CLI {module}: {r.stdout.strip()}")
+
+
+def phase_cli():
+    frames = 3 * 30
+    run_cli("pantomatrix_tpu_torch.cli.test_emage",
+            {"poses": (frames, 165), "expressions": (frames, 100), "trans": (frames, 3)})
 
 
 def main():
@@ -301,7 +477,7 @@ def main():
 
     # 2. build
     t0 = time.time()
-    libs = build.build(["vq_nearest_code"])
+    libs = build.build(["vq_nearest_code", "lstm_sequence"])
     log(f"build: {time.time() - t0:.1f} s -> {[str(p.relative_to(HERE)) for p in libs.values()]}")
     for p in libs.values():
         log(Path(f"{p}.log").read_text().strip() if Path(f"{p}.log").exists() else "")
@@ -314,6 +490,14 @@ def main():
     main_launches = phase_main_path("cuda", card)
     # 6. CLI
     phase_cli()
+    # 7. K2 against its plain version
+    k2_rows = phase_k2("cuda")
+    # 8. parity at the tiny CaMN/DisCo configs
+    phase_lstm_parity()
+    # 9-10. CaMN and DisCo at full width (each counts K2 launches)
+    k2_launches = {name: phase_lstm_path(name, card) for name in ("camn", "disco")}
+    # 11. CaMN CLI: 3 s at 15 fps, saved upsampled to 30 fps
+    run_cli("pantomatrix_tpu_torch.cli.test_camn", {"poses": (90, 165)})
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     kernels = [{
@@ -332,6 +516,24 @@ def main():
         "shape": head["shape"],
         "by_shape": k1_rows,
     }]
+    head = next(r for r in k2_rows if tuple(r["shape"]) == K2_HEADLINE)
+    kernels.append({
+        "name": "lstm_sequence",
+        "route": "cuda",
+        "source": "pantomatrix_tpu_torch/csrc/lstm_sequence.cu",
+        "replaces": "pantomatrix_tpu/ops/lstm_pallas.py:30",
+        "launches": k2_launches["camn"],
+        "launches_by_path": k2_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": head["kernel_ms"],
+        "kernel_ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": head["shape"],
+        "by_shape": k2_rows,
+    })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

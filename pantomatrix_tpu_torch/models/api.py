@@ -1,5 +1,6 @@
-"""User-facing model classes with ``from_pretrained`` / ``save_pretrained`` (counterpart
-of ``pantomatrix_tpu/models/api.py``, EMAGE only).
+"""User-facing model classes with ``from_pretrained`` / ``save_pretrained``, and the
+auto classes that pick one by a checkpoint's ``model_type`` (counterpart of
+``pantomatrix_tpu/models/api.py``).
 
 Every constructor and loader takes ``device``, default ``"cuda"``, and raises when CUDA
 is absent rather than running on the CPU; pass ``device="cpu"`` for a CPU run. Random
@@ -7,12 +8,22 @@ init draws from a CPU ``torch.Generator`` seeded with ``seed``, then moves to th
 """
 from __future__ import annotations
 
-from typing import Type
+from typing import Dict, Type
 
 import torch
 
 from ..io import hf_checkpoint
-from .configs import BaseConfig, EmageAudioConfig, EmageVAEConvConfig, EmageVQVAEConvConfig
+from .camn import CamnAudio
+from .configs import (
+    BaseConfig,
+    CamnAudioConfig,
+    DiscoAudioConfig,
+    EmageAudioConfig,
+    EmageVAEConvConfig,
+    EmageVQVAEConvConfig,
+    auto_config,
+)
+from .disco import DiscoAudio
 from .emage import EmageAudio, emage_inference
 from .emage_vq import (
     EmageVAE,
@@ -57,6 +68,20 @@ class PretrainedModel:
         hf_checkpoint.save_checkpoint(directory, self.state_dict(), self.config)
 
 
+class CamnAudioModel(PretrainedModel, CamnAudio):
+    """``model(audio, speaker_id, seed_frames=4, seed_motion=None,
+    return_axis_angle=True)`` runs ``camn_forward``."""
+
+    config_class = CamnAudioConfig
+
+
+class DiscoAudioModel(PretrainedModel, DiscoAudio):
+    """``model(audio, speaker_id, seed_frames=4, seed_motion=None,
+    return_axis_angle=True)`` runs ``disco_forward``."""
+
+    config_class = DiscoAudioConfig
+
+
 class EmageVQVAEConv(PretrainedModel, EmageVQVAE):
     config_class = EmageVQVAEConvConfig
 
@@ -93,11 +118,40 @@ class EmageAudioModel(PretrainedModel, EmageAudio):
         return emage_inference(self, audio, speaker_id, vq_model, masked_motion, mask)
 
 
+MODEL_REGISTRY: Dict[str, Type[PretrainedModel]] = {
+    "camn_audio": CamnAudioModel,
+    "disco_audio": DiscoAudioModel,
+    "emage_audio": EmageAudioModel,
+    "emage_vqvaeconv": EmageVQVAEConv,
+    "emage_vaeconv": EmageVAEConv,
+}
+
+
+class AutoModel:
+    """Loads a checkpoint directory into the model class its ``model_type`` names."""
+
+    @classmethod
+    def from_pretrained(cls, directory: str, device="cuda") -> PretrainedModel:
+        return MODEL_REGISTRY[auto_config(directory).model_type].from_pretrained(
+            directory, device=device)
+
+
+class AutoConfig:
+    @classmethod
+    def from_pretrained(cls, directory: str) -> BaseConfig:
+        return auto_config(directory)
+
+
 __all__ = [
+    "AutoConfig",
+    "AutoModel",
+    "CamnAudioModel",
+    "DiscoAudioModel",
     "EmageAudioModel",
     "EmageVAEConv",
     "EmageVQModel",
     "EmageVQVAEConv",
+    "MODEL_REGISTRY",
     "PretrainedModel",
     "resolve_device",
 ]

@@ -1,8 +1,9 @@
 """Model configuration dataclasses (the port's own copy).
 
-Same fields and defaults as ``pantomatrix_tpu/models/configs.py:104-160``; round-trips
-through the same ``config.json`` files. Identity equality (``eq=False``) as in the
-reference copy, so a config can key a cache by object.
+Same fields and defaults as ``pantomatrix_tpu/models/configs.py``; round-trips
+through the same ``config.json`` files, whose ``model_type`` picks the class
+(:func:`auto_config`). Identity equality (``eq=False``) as in the reference copy, so a
+config can key a cache by object.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Type
 
 
 @dataclass(eq=False)
@@ -39,6 +40,56 @@ class BaseConfig:
     def load_json(cls, directory: str) -> "BaseConfig":
         with open(os.path.join(directory, "config.json")) as f:
             return cls.from_dict(json.load(f))
+
+
+@dataclass(eq=False)
+class CamnAudioConfig(BaseConfig):
+    """configs/camn_audio.yaml model subtree."""
+
+    model_type: str = "camn_audio"
+    pose_fps: int = 15
+    motion_f: int = 256
+    pose_dims: int = 258
+    pose_rep: str = "smplx"
+    body_dims: int = 78
+    hands_dims: int = 180
+    audio_rep: str = "wave16k"
+    audio_sr: int = 16000
+    audio_fps: int = 16000
+    audio_norm: bool = False
+    audio_f: int = 128
+    speaker_f: int = 16
+    speaker_dims: int = 1
+    hidden_size: int = 512
+    n_layer: int = 4
+    dropout_prob: float = 0.1
+    seed_frames: int = 4
+    joint_mask: str = "local_upper"
+
+
+@dataclass(eq=False)
+class DiscoAudioConfig(BaseConfig):
+    """configs/disco_audio.yaml model subtree: the same fields as CaMN."""
+
+    model_type: str = "disco_audio"
+    pose_fps: int = 15
+    motion_f: int = 256
+    pose_dims: int = 258
+    pose_rep: str = "smplx"
+    body_dims: int = 78
+    hands_dims: int = 180
+    audio_rep: str = "wave16k"
+    audio_sr: int = 16000
+    audio_fps: int = 16000
+    audio_norm: bool = False
+    audio_f: int = 128
+    speaker_f: int = 16
+    speaker_dims: int = 1
+    hidden_size: int = 512
+    n_layer: int = 4
+    dropout_prob: float = 0.1
+    seed_frames: int = 4
+    joint_mask: str = "local_upper"
 
 
 @dataclass(eq=False)
@@ -99,9 +150,32 @@ class EmageVAEConvConfig(BaseConfig):
     vae_test_dim: int = 61
 
 
+CONFIG_REGISTRY: Dict[str, Type[BaseConfig]] = {
+    "camn_audio": CamnAudioConfig,
+    "disco_audio": DiscoAudioConfig,
+    "emage_audio": EmageAudioConfig,
+    "emage_vqvaeconv": EmageVQVAEConvConfig,
+    "emage_vaeconv": EmageVAEConvConfig,
+}
+
+
+def auto_config(directory: str) -> BaseConfig:
+    """The config of a checkpoint directory, of the class its ``model_type`` names."""
+    with open(os.path.join(directory, "config.json")) as f:
+        d = json.load(f)
+    model_type = d.get("model_type")
+    if model_type not in CONFIG_REGISTRY:
+        raise ValueError(f"unknown model_type {model_type!r} in {directory}")
+    return CONFIG_REGISTRY[model_type].from_dict(d)
+
+
 __all__ = [
     "BaseConfig",
+    "CONFIG_REGISTRY",
+    "CamnAudioConfig",
+    "DiscoAudioConfig",
     "EmageAudioConfig",
     "EmageVAEConvConfig",
     "EmageVQVAEConvConfig",
+    "auto_config",
 ]

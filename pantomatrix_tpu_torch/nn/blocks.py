@@ -1,4 +1,5 @@
-"""Composite blocks of the EMAGE family (counterpart of ``pantomatrix_tpu/nn/blocks.py``).
+"""Composite blocks of the EMAGE, CaMN and DisCo families (counterpart of
+``pantomatrix_tpu/nn/blocks.py``).
 
 Each JAX ``f(p, x, ...)`` becomes a module whose ``state_dict`` paths equal the JAX
 param tree and whose ``forward`` is ``f``: ``mlp`` -> :class:`MLP`, ``basic_block`` ->
@@ -62,37 +63,53 @@ class BasicBlock(nn.Module):
         return leaky_relu(y + shortcut, 0.01)
 
 
-def wav_encoder_stages(out_dim: int):
-    """EMAGE WavEncoder stages, (in, out, kernel, stride, first_dilation, downsample):
-    strides 5*6*1*6*1*3 = /540 (~30 fps from 16 kHz); stage-1 padding 1600."""
-    d = out_dim
-    return [
-        (1, d // 4, 15, 5, 1600, True),
-        (d // 4, d // 4, 15, 6, 0, True),
-        (d // 4, d // 4, 15, 1, 7, False),
-        (d // 4, d // 2, 15, 6, 0, True),
-        (d // 2, d // 2, 15, 1, 7, False),
-        (d // 2, d, 15, 3, 0, True),
-    ]
+def wav_encoder_stages(out_dim: int, variant: str = "emage"):
+    """WavEncoder stages, (in, out, kernel, stride, first_dilation, downsample); stage-1
+    padding 1600.
+
+    ``"emage"``: strides 5*6*1*6*1*3 = /540 (~30 fps from 16 kHz), channels d/4, d/4,
+    d/4, d/2, d/2, d. ``"camn"`` (CaMN and DisCo): strides 5*6*1*6*1*6 = /1080 (~15 fps),
+    channels fixed at 32, 32, 32, 64, 64, 128 whatever ``out_dim`` is; its blocks take
+    a downsample path wherever the stride or the width changes."""
+    if variant == "emage":
+        d = out_dim
+        return [
+            (1, d // 4, 15, 5, 1600, True),
+            (d // 4, d // 4, 15, 6, 0, True),
+            (d // 4, d // 4, 15, 1, 7, False),
+            (d // 4, d // 2, 15, 6, 0, True),
+            (d // 2, d // 2, 15, 1, 7, False),
+            (d // 2, d, 15, 3, 0, True),
+        ]
+    if variant == "camn":
+        return [
+            (1, 32, 15, 5, 1600, True),
+            (32, 32, 15, 6, 0, True),
+            (32, 32, 15, 1, 7, False),
+            (32, 64, 15, 6, 0, True),
+            (64, 64, 15, 1, 7, False),
+            (64, 128, 15, 6, 0, True),
+        ]
+    raise ValueError(f"unknown WavEncoder variant {variant!r}")
 
 
-def wav_encoder_out_len(n_samples: int, out_dim: int) -> int:
+def wav_encoder_out_len(n_samples: int, out_dim: int, variant: str = "emage") -> int:
     """Exact output frame count of the WavEncoder (torch conv1d length arithmetic)."""
     length = n_samples
-    for (_, _, k, s, fd, _) in wav_encoder_stages(out_dim):
+    for (_, _, k, s, fd, _) in wav_encoder_stages(out_dim, variant):
         length = (length + 2 * fd - k) // s + 1  # conv1
         length = (length + 2 * (k // 2) - k) + 1  # conv2, length-preserving
     return length
 
 
 class WavEncoder(nn.Module):
-    """Raw 16 kHz wave (B, samples) -> (B, frames, out_dim); keys feat_extractor.{0..5}."""
+    """Raw 16 kHz wave (B, samples) -> (B, frames, channels); keys feat_extractor.{0..5}."""
 
-    def __init__(self, out_dim: int, *, generator: torch.Generator):
+    def __init__(self, out_dim: int, variant: str = "emage", *, generator: torch.Generator):
         super().__init__()
         self.feat_extractor = nn.Sequential(*[
             BasicBlock(cin, cout, k, s, fd, ds, generator=generator)
-            for (cin, cout, k, s, fd, ds) in wav_encoder_stages(out_dim)
+            for (cin, cout, k, s, fd, ds) in wav_encoder_stages(out_dim, variant)
         ])
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,60 @@
+"""Bidirectional multi-layer LSTM at inference (counterpart of
+``pantomatrix_tpu/nn/lstm.py``), matching ``torch.nn.LSTM`` in gates and names.
+
+As in the JAX package, the input projection ``x @ W_ih^T + (b_ih + b_hh)`` of the whole
+sequence is one matmul outside the recurrence, and each direction's recurrence runs
+through ``ops/lstm_cuda.lstm_direction`` (kernel K2 on a CUDA tensor). The reverse
+direction runs on the time-flipped sequence and flips its output back. Parameters keep
+torch's names: ``weight_ih_l{k}[_reverse]``, ``weight_hh_l{k}[_reverse]``,
+``bias_ih_l{k}[_reverse]``, ``bias_hh_l{k}[_reverse]``. Eval mode only: the
+inter-layer dropout is the identity.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.lstm_cuda import lstm_direction
+from .layers import uniform
+
+SUFFIXES = ("", "_reverse")  # forward, then backward direction
+
+
+class LSTM(nn.Module):
+    """Bidirectional: (B, T, C) -> (B, T, 2H), forward then backward states; init
+    U(+-1/sqrt(H))."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden_size, self.num_layers = hidden_size, num_layers
+        bound = 1.0 / math.sqrt(hidden_size)
+        four_h = 4 * hidden_size
+        for layer in range(num_layers):
+            in_dim = input_size if layer == 0 else 2 * hidden_size
+            for sfx in SUFFIXES:
+                setattr(self, f"weight_ih_l{layer}{sfx}",
+                        uniform((four_h, in_dim), bound, generator))
+                setattr(self, f"weight_hh_l{layer}{sfx}",
+                        uniform((four_h, hidden_size), bound, generator))
+                setattr(self, f"bias_ih_l{layer}{sfx}", uniform((four_h,), bound, generator))
+                setattr(self, f"bias_hh_l{layer}{sfx}", uniform((four_h,), bound, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.transpose(0, 1)  # (T, B, C)
+        for layer in range(self.num_layers):
+            outs = []
+            for sfx in SUFFIXES:
+                p = lambda name: getattr(self, f"{name}_l{layer}{sfx}")
+                seq = y.flip(0) if sfx else y
+                bias = p("bias_ih") + p("bias_hh")
+                x_proj = torch.matmul(seq, p("weight_ih").T) + bias  # (T, B, 4H)
+                hs = lstm_direction(x_proj, p("weight_hh"), self.hidden_size)
+                outs.append(hs.flip(0) if sfx else hs)
+            y = torch.cat(outs, dim=-1)
+        return y.transpose(0, 1)
+
+
+__all__ = ["LSTM"]

@@ -1,5 +1,5 @@
 """The port stands alone: pantomatrix_tpu_torch, chip_smoke.py and the port's profile
-script import neither JAX nor the JAX package, directly or through anything they
+scripts import neither JAX nor the JAX package, directly or through anything they
 import."""
 import ast
 import os
@@ -23,7 +23,8 @@ def _is_forbidden(name: str) -> bool:
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_profile_emage.py")]
+             os.path.join(REPO, "scripts", "torch_profile_emage.py"),
+             os.path.join(REPO, "scripts", "torch_profile_lstm.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -70,8 +71,9 @@ loaded = [m for m in sys.modules
           if m in ("jax", "jaxlib", "pantomatrix_tpu")
           or m.startswith(("jax.", "jaxlib.", "pantomatrix_tpu."))]
 print(len(names), "modules")
-assert "pantomatrix_tpu_torch.ops.vq_cuda" in names, names
-assert "pantomatrix_tpu_torch.cli.test_emage" in names, names
+for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.disco",
+             "cli.test_emage", "cli.test_camn", "cli.test_disco"):
+    assert "pantomatrix_tpu_torch." + want in names, names
 assert not loaded, loaded
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
