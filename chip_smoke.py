@@ -14,15 +14,19 @@ Phases, each of which raises on failure (nothing is caught):
      weights from a seed): batch 8 x 20 s through EmageAudioModel.inference and
      EmageVQModel.decode, counting K1 launches; then one timed call at batch 128 x 60 s;
   6. the CLI (python -m pantomatrix_tpu_torch.cli.test_emage --random_init) on a 3 s WAV;
-  7. K2 (LSTM sequence, one direction) against its plain PyTorch version on the card, at
-     the test shapes (atol 1e-5) and the CaMN/DisCo path shapes (T = 421, B = 8 and 64,
-     H = 512), where both are also held against a float64 run; CUDA-event timings of the
-     kernel, the plain version and, as the library yardstick, cuDNN's
-     torch.nn.LSTM(1024, 512) for one layer and direction beside matmul projection + K2;
+  7. K2 (the persistent LSTM layer kernel) against its plain PyTorch version on the card,
+     for one direction (lstm_direction) and for both directions of a layer in one launch
+     (lstm_bidirectional): at the test and edge shapes to atol 1e-5, and at the CaMN/DisCo
+     path shapes (T = 421, B = 8 and 64, H = 512) against a float64 run; two calls must
+     be bitwise equal. CUDA-event timings of each layer launch and its us per step (with
+     B = 1 as the per-step latency floor), the plain version and, as library yardsticks,
+     cuDNN's torch.nn.LSTM(1024, 512) (one direction) and torch.nn.LSTM(1024, 512,
+     bidirectional=True) for one layer, beside matmul projection + K2;
   8. parity: tiny CaMN and DisCo configs on the CPU (plain K2) and on the card;
   9. CaMN at full width (CamnAudioConfig(), random weights from a seed): batch 8 x 28.4 s
-     once, checking shapes and 16 K2 launches, then timed calls at batch 8 and 64;
- 10. DisCo at full width, the same, with 8 K2 launches;
+     once, checking shapes and 8 K2 launches (one per bidirectional layer), then timed
+     calls at batch 8 and 64;
+ 10. DisCo at full width, the same, with 4 K2 launches;
  11. the CaMN CLI (python -m pantomatrix_tpu_torch.cli.test_camn --random_init) on a 3 s WAV.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
@@ -55,9 +59,13 @@ K1_SHAPES = [
     (128 * 64, 256, 256), (128 * 60, 256, 256), (128 * 1800, 256, 256),
 ]
 K1_HEADLINE = (128 * 1800, 256, 256)
-# (T, B, H): the K2 tests' shapes, then CaMN/DisCo's at 28.4 s (421 frames at 15 fps)
-K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512)]
+# (T, B, H): the K2 tests' shapes and edge shapes of the launch plan (one row, ragged
+# batch groups, more rows than one pass of the grid), then CaMN/DisCo's at 28.4 s (421
+# frames at 15 fps), and B = 1 for the per-step latency floor
+K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
+                  (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512)]
 K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512)]
+K2_FLOOR_SHAPE = (421, 1, 512)
 K2_HEADLINE = (421, 64, 512)
 K2_ATOL = 1e-5
 LSTM_SECONDS, LSTM_SAMPLES, LSTM_FRAMES = 28.4, 454400, 421
@@ -280,13 +288,35 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     return launches
 
 
-def k2_bound(t: int, b: int, h: int):
-    """Least time for one direction on an H100: 2*T*B*4H*H FMA work plus ~10*T*B*H gate
-    operations, against xp and out moved once and W_hh read once."""
-    flops = 2.0 * t * b * 4 * h * h + 10.0 * t * b * h
-    nbytes = 4.0 * (t * b * 4 * h + t * b * h + 4 * h * h)
+def k2_bound(t: int, b: int, h: int, d: int = 1):
+    """Least time for a layer of ``d`` directions on an H100: per direction 2*T*B*4H*H
+    FMA work plus ~10*T*B*H gate operations, against xp and out moved once and W_hh
+    read once."""
+    flops = d * (2.0 * t * b * 4 * h * h + 10.0 * t * b * h)
+    nbytes = d * 4.0 * (t * b * 4 * h + t * b * h + 4 * h * h)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k2_fns(d: int):
+    """The wrapper and the plain version of K2 for a layer of ``d`` directions."""
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+
+    if d == 1:
+        return lstm_cuda.lstm_direction, lstm_cuda.lstm_direction_plain
+    return lstm_cuda.lstm_bidirectional, lstm_cuda.lstm_bidirectional_plain
+
+
+def k2_check(d, shape, got, again, want):
+    """Shape, agreement with the plain version (atol K2_ATOL) and bitwise repeatability."""
+    t, b, h = shape
+    err = float((got - want).abs().max())
+    if got.shape != (t, b, d * h) or not err <= K2_ATOL:
+        raise AssertionError(f"K2 D={d} {shape}: shape {tuple(got.shape)}, max abs err "
+                             f"{err} > {K2_ATOL}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K2 D={d} {shape}: two calls differ")
+    return err
 
 
 def phase_k2(device):
@@ -294,58 +324,73 @@ def phase_k2(device):
     from pantomatrix_tpu_torch.ops import lstm_cuda
 
     g = torch.Generator().manual_seed(2)
+    sms, smem = lstm_cuda.device_limits(torch.cuda.current_device())
     rows = []
     with strict_fp32():
-        for t, b, h in K2_TEST_SHAPES:  # the JAX kernel test's inputs
-            xp = torch.randn(t, b, 4 * h, generator=g).to(device)
-            w_hh = (0.2 * torch.randn(4 * h, h, generator=g)).to(device)
-            got = lstm_cuda.lstm_direction(xp, w_hh, h)
-            want = lstm_cuda.lstm_direction_plain(xp, w_hh, h)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if got.shape != (t, b, h) or not err <= K2_ATOL:
-                raise AssertionError(f"K2 {(t, b, h)}: shape {tuple(got.shape)}, "
-                                     f"max abs err {err} > {K2_ATOL}")
-            rows.append({"shape": [t, b, h], "max_abs_err": err})
-            log(f"K2 lstm_sequence {rows[-1]}")
-        for t, b, h in K2_PATH_SHAPES:
-            # a torch-default layer (U(+-1/sqrt(H))) on N(0, 1) input of the inner layers'
+        for d in (1, 2):
+            kernel, plain = k2_fns(d)
+            for t, b, h in K2_TEST_SHAPES:  # the JAX kernel test's inputs
+                xp = torch.randn(t, b, d * 4 * h, generator=g).to(device)
+                w_hh = (0.2 * torch.randn(d, 4 * h, h, generator=g)).to(device)
+                w_hh = w_hh[0] if d == 1 else w_hh
+                got, again = kernel(xp, w_hh, h), kernel(xp, w_hh, h)
+                want = plain(xp, w_hh, h)
+                torch.cuda.synchronize()
+                err = k2_check(d, (t, b, h), got, again, want)
+                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
+                rows.append({"directions": d, "shape": [t, b, h], "max_abs_err": err,
+                             "bitwise_repeatable": True, "plan": plan._asdict()})
+                log(f"K2 lstm_layer {rows[-1]}")
+        for t, b, h in [K2_FLOOR_SHAPE] + K2_PATH_SHAPES:
+            # torch-default layers (U(+-1/sqrt(H))) on N(0, 1) input of the inner layers'
             # width 2H, as CaMN/DisCo's LSTMs see it
             bound = h ** -0.5
             u = lambda *shape: ((torch.rand(*shape, generator=g) * 2 - 1) * bound).to(device)
-            w_ih, w_hh, b_ih, b_hh = u(4 * h, 2 * h), u(4 * h, h), u(4 * h), u(4 * h)
+            w_ih, w_hh, b_ih, b_hh = u(2, 4 * h, 2 * h), u(2, 4 * h, h), u(2, 4 * h), u(2, 4 * h)
             x = torch.randn(t, b, 2 * h, generator=g).to(device)
-            xp = torch.matmul(x, w_ih.T) + (b_ih + b_hh)
-            got = lstm_cuda.lstm_direction(xp, w_hh, h)
-            want = lstm_cuda.lstm_direction_plain(xp, w_hh, h)
-            exact = lstm_cuda.lstm_direction_plain(xp.double(), w_hh.double(), h)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            err64 = float((got.double() - exact).abs().max())
-            plain_err64 = float((want.double() - exact).abs().max())
-            if not err64 <= 2 * plain_err64 + 1e-6:
-                raise AssertionError(f"K2 {(t, b, h)}: kernel off float64 by {err64}, plain "
-                                     f"fp32 by {plain_err64}")
-            row = {"shape": [t, b, h], "max_abs_err": err, "kernel_err_vs_fp64": err64,
-                   "plain_err_vs_fp64": plain_err64}
-            row["kernel_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction(xp, w_hh, h), reps=10)
-            row["plain_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction_plain(xp, w_hh, h),
-                                      reps=3, warmup=1)
-            # the yardstick computes projection + recurrence, so beside it: matmul + K2
-            cudnn = torch.nn.LSTM(2 * h, h).to(device)
-            with torch.no_grad():
-                for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
-                                ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
-                    getattr(cudnn, name).copy_(w)
-                lib_out, _ = cudnn(x)
-                row["library_max_abs_diff"] = float((lib_out - got).abs().max())
-                row["library_ms"] = cuda_ms(lambda: cudnn(x), reps=10)
-            row["projection_plus_kernel_ms"] = cuda_ms(lambda: lstm_cuda.lstm_direction(
-                torch.matmul(x, w_ih.T) + (b_ih + b_hh), w_hh, h), reps=10)
-            row["us_per_step"] = 1e3 * row["kernel_ms"] / t
-            row["bound_ms"], row["bound_by"] = k2_bound(t, b, h)
-            rows.append(row)
-            log(f"K2 lstm_sequence {row}")
+            for d in (1, 2):
+                kernel, plain = k2_fns(d)
+                wi = w_ih[0] if d == 1 else w_ih.reshape(8 * h, 2 * h)
+                bias = (b_ih[0] + b_hh[0]) if d == 1 else (b_ih + b_hh).reshape(8 * h)
+                wh = w_hh[0] if d == 1 else w_hh
+                xp = torch.matmul(x, wi.T) + bias
+                got, again = kernel(xp, wh, h), kernel(xp, wh, h)
+                want = plain(xp, wh, h)
+                exact = plain(xp.double(), wh.double(), h)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K2 D={d} {(t, b, h)}: two calls differ")
+                err = float((got - want).abs().max())
+                err64 = float((got.double() - exact).abs().max())
+                plain_err64 = float((want.double() - exact).abs().max())
+                if not err64 <= 2 * plain_err64 + 1e-6:
+                    raise AssertionError(f"K2 D={d} {(t, b, h)}: kernel off float64 by {err64}, "
+                                         f"plain fp32 by {plain_err64}")
+                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
+                row = {"directions": d, "shape": [t, b, h], "max_abs_err": err,
+                       "kernel_err_vs_fp64": err64, "plain_err_vs_fp64": plain_err64,
+                       "bitwise_repeatable": True, "plan": plan._asdict()}
+                row["kernel_ms"] = cuda_ms(lambda: kernel(xp, wh, h), reps=10)
+                row["us_per_step"] = 1e3 * row["kernel_ms"] / t
+                row["bound_ms"], row["bound_by"] = k2_bound(t, b, h, d)
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+                if (t, b, h) != K2_FLOOR_SHAPE:
+                    row["plain_ms"] = cuda_ms(lambda: plain(xp, wh, h), reps=3, warmup=1)
+                    # the yardstick computes projection + recurrence, so beside it matmul + K2
+                    cudnn = torch.nn.LSTM(2 * h, h, bidirectional=d == 2).to(device)
+                    with torch.no_grad():
+                        for k in range(d):
+                            sfx = "_reverse" if k else ""
+                            for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                                            ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+                                getattr(cudnn, name + sfx).copy_(w[k])
+                        lib_out, _ = cudnn(x)
+                        row["library_max_abs_diff"] = float((lib_out - got).abs().max())
+                        row["library_ms"] = cuda_ms(lambda: cudnn(x), reps=10)
+                    row["projection_plus_kernel_ms"] = cuda_ms(
+                        lambda: kernel(torch.matmul(x, wi.T) + bias, wh, h), reps=10)
+                rows.append(row)
+                log(f"K2 lstm_layer {row}")
     return rows
 
 
@@ -389,8 +434,8 @@ def phase_lstm_path(name, card, counted_bs=8, timed=(8, 64)):
     from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
 
     model_cls, cfg_cls, want_launches = {
-        "camn": (CamnAudioModel, CamnAudioConfig, 16),
-        "disco": (DiscoAudioModel, DiscoAudioConfig, 8)}[name]
+        "camn": (CamnAudioModel, CamnAudioConfig, 8),
+        "disco": (DiscoAudioModel, DiscoAudioConfig, 4)}[name]
     model = model_cls(cfg_cls(), seed=3, device="cuda")
     g = torch.Generator().manual_seed(4)
 
@@ -516,10 +561,12 @@ def main():
         "shape": head["shape"],
         "by_shape": k1_rows,
     }]
-    head = next(r for r in k2_rows if tuple(r["shape"]) == K2_HEADLINE)
+    head = next(r for r in k2_rows
+                if tuple(r["shape"]) == K2_HEADLINE and r["directions"] == 2)
     kernels.append({
         "name": "lstm_sequence",
         "route": "cuda",
+        "directions": 2,
         "source": "pantomatrix_tpu_torch/csrc/lstm_sequence.cu",
         "replaces": "pantomatrix_tpu/ops/lstm_pallas.py:30",
         "launches": k2_launches["camn"],

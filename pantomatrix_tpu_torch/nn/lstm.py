@@ -2,9 +2,11 @@
 ``pantomatrix_tpu/nn/lstm.py``), matching ``torch.nn.LSTM`` in gates and names.
 
 As in the JAX package, the input projection ``x @ W_ih^T + (b_ih + b_hh)`` of the whole
-sequence is one matmul outside the recurrence, and each direction's recurrence runs
-through ``ops/lstm_cuda.lstm_direction`` (kernel K2 on a CUDA tensor). The reverse
-direction runs on the time-flipped sequence and flips its output back. Parameters keep
+sequence is one matmul outside the recurrence: here one matmul per layer, against both
+directions' input weights stacked, on the unflipped sequence. Both recurrences of the
+layer then run in one ``ops/lstm_cuda.lstm_bidirectional`` call (one launch of kernel
+K2 on a CUDA tensor), which reads the reverse direction's steps back to front and
+writes its states in place, so nothing is flipped or concatenated. Parameters keep
 torch's names: ``weight_ih_l{k}[_reverse]``, ``weight_hh_l{k}[_reverse]``,
 ``bias_ih_l{k}[_reverse]``, ``bias_hh_l{k}[_reverse]``. Eval mode only: the
 inter-layer dropout is the identity.
@@ -16,7 +18,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.lstm_cuda import lstm_direction
+from ..ops.lstm_cuda import lstm_bidirectional
 from .layers import uniform
 
 SUFFIXES = ("", "_reverse")  # forward, then backward direction
@@ -45,15 +47,11 @@ class LSTM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.transpose(0, 1)  # (T, B, C)
         for layer in range(self.num_layers):
-            outs = []
-            for sfx in SUFFIXES:
-                p = lambda name: getattr(self, f"{name}_l{layer}{sfx}")
-                seq = y.flip(0) if sfx else y
-                bias = p("bias_ih") + p("bias_hh")
-                x_proj = torch.matmul(seq, p("weight_ih").T) + bias  # (T, B, 4H)
-                hs = lstm_direction(x_proj, p("weight_hh"), self.hidden_size)
-                outs.append(hs.flip(0) if sfx else hs)
-            y = torch.cat(outs, dim=-1)
+            p = lambda name: [getattr(self, f"{name}_l{layer}{sfx}") for sfx in SUFFIXES]
+            w_ih = torch.cat(p("weight_ih"))  # (8H, C): forward rows, then reverse rows
+            bias = torch.cat(p("bias_ih")) + torch.cat(p("bias_hh"))
+            x_proj = torch.matmul(y, w_ih.T) + bias  # (T, B, 8H)
+            y = lstm_bidirectional(x_proj, torch.stack(p("weight_hh")), self.hidden_size)
         return y.transpose(0, 1)
 
 

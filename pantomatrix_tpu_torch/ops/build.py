@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so`` beside the package (the
-hash is over the source, so an edited source rebuilds), then loaded with ``ctypes``.
+hash is over the source and the compiler flags, so an edit to either rebuilds), then
+loaded with ``ctypes``.
 Nothing is compiled or loaded at import: a kernel builds when a CUDA tensor first
 reaches its wrapper, or when a caller asks for :func:`build` up front. Several
 sources build in parallel, one ``nvcc`` process each.
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -41,17 +42,23 @@ def nvcc_path() -> str:
         "pantomatrix_tpu_torch/csrc are built from source at first use on the GPU")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, flags: Optional[Iterable[str]] = None) -> Path:
+    """Where the library of ``csrc/<name>.cu`` built with ``flags`` (default
+    ``NVCC_FLAGS``) lives: named by a hash of the source and the flags together, so that
+    a change to either builds anew."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    flags = NVCC_FLAGS if flags is None else list(flags)
+    digest = hashlib.sha256(src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named source whose library is missing, all at once; return the
-    library paths. The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept in ``<library>.log``. Raises on a failed build."""
-    paths = {name: library_path(name) for name in names}
+def build(names: Iterable[str], flags: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, all at once, with ``flags``
+    (default ``NVCC_FLAGS``); return the library paths. The compiler's report
+    (``-Xptxas -v``: registers, shared memory, spills) is kept in ``<library>.log``.
+    Raises on a failed build."""
+    flags = NVCC_FLAGS if flags is None else list(flags)
+    paths = {name: library_path(name, flags) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -60,7 +67,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     procs = {}
     for name, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)
     failures = []

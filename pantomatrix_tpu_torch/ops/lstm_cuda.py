@@ -1,19 +1,30 @@
-"""One LSTM direction over a whole sequence: the CUDA kernel ``csrc/lstm_sequence.cu``,
-its plain PyTorch version, and the wrapper that picks between them by device.
+"""LSTM recurrences over whole sequences: the CUDA kernel ``csrc/lstm_sequence.cu``, its
+plain PyTorch versions, its launch plan, and the wrappers that pick between them by
+device.
 
 Counterpart of ``pantomatrix_tpu/ops/lstm_pallas.py`` (kernel ``_lstm_seq_kernel``).
-Both take ``x_proj`` (T, B, 4H) = ``x @ W_ih^T + (b_ih + b_hh)`` and ``w_hh`` (4H, H)
-in torch layout, start from h = c = 0, use torch's gate order i, f, g, o, and return
-every hidden state (T, B, H).
+Every function starts from h = c = 0 and uses torch's gate order i, f, g, o.
 
-:func:`lstm_direction` sends a CPU tensor to :func:`lstm_direction_plain` and a CUDA
-tensor to the kernel; on a CUDA tensor it launches the kernel or raises. ``launches``
-counts wrapper calls that launched the kernel, one per direction, so a run can show
+- :func:`lstm_direction` runs one direction: ``x_proj`` (T, B, 4H) =
+  ``x @ W_ih^T + (b_ih + b_hh)`` and ``w_hh`` (4H, H) give every hidden state (T, B, H).
+- :func:`lstm_bidirectional` runs both directions of a layer in one launch: ``x_proj``
+  (T, B, 8H) holds the forward projection in columns [0, 4H) and the reverse one in
+  [4H, 8H), both of the unflipped sequence; ``w_hh`` is (2, 4H, H). It returns
+  (T, B, 2H), forward states in [0, H) and reverse states in [H, 2H): exactly
+  ``cat([fwd, rev.flip(0)], -1)``, with no flip or concatenation materialised.
+
+Each sends CPU tensors to its plain version and CUDA tensors to the kernel; on a CUDA
+tensor it launches the kernel or raises. The kernel is a cooperative launch that needs
+all of its CTAs co-resident, one per SM (:func:`plan_layer`), so it wants the whole
+card: where that fails (a card shared under MPS, say) the launch raises. ``launches``
+counts wrapper calls that launched the kernel, one per layer call, so a run can show
 that it went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,7 +32,98 @@ from . import build
 
 launches = 0
 
+THREADS = 256  # threads per CTA (csrc/lstm_sequence.cu)
+TILE_ROWS = (4, 8, 16, 32)  # batch rows per tile the kernel takes
+MAX_K_SPLIT = 32  # lanes of one warp that share a register tile's sums
+
 _fn = None
+
+
+class LayerPlan(NamedTuple):
+    """How one layer call is cut over the card's SMs (see ``csrc/lstm_sequence.cu``)."""
+    units: int          # U: hidden units per CTA, all 4 gates of each
+    tile_rows: int      # BT: batch rows per tile of the gate product
+    rows: int           # BR: batch rows per CTA, in ceil(BR / BT) tiles a step
+    unit_groups: int    # ceil(H / U)
+    batch_groups: int   # ceil(B / BR)
+    directions: int     # D
+    resident: bool      # W_hh's slice held in shared memory for the whole sequence
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.unit_groups * self.batch_groups * self.directions
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(hidden: int, units: int, tile_rows: int, rows: int, resident: bool) -> int:
+    """Shared memory of one CTA: the swizzled W slice (if resident) and h tile, each row
+    padded to a multiple of 32 floats, the tile's gate products, the double-buffered xp
+    tile and the cell state. Mirrors ``smem_bytes`` in the CUDA source."""
+    hc = _cdiv(_cdiv(hidden, 4), 8) * 8  # float4 chunks per row, a multiple of 8
+    r = 4 * units
+    return 16 * ((r * hc if resident else 0) + tile_rows * hc) + \
+        4 * (3 * tile_rows * r + rows * units)
+
+
+def k_split(units: int, tile_rows: int) -> int:
+    """Threads that share one register tile (the 4 gates of 2 units where the tile has 32
+    rows, else of 1, for 8 rows, or 4 where the tile has 4), each taking every
+    k_split-th chunk of k; 0 where the 256 threads do not divide evenly."""
+    tile_units = 2 if tile_rows >= 32 else 1
+    if units % tile_units:
+        return 0
+    tiles = units // tile_units * (tile_rows // (8 if tile_rows >= 8 else 4))
+    return THREADS // tiles if THREADS % tiles == 0 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def plan_layer(T: int, B: int, H: int, D: int, num_sms: int,
+               smem_per_block: int) -> LayerPlan:
+    """Choose units per CTA U and batch rows per CTA BR for a (T, B, H) layer of D
+    directions, such that every (direction, batch row, unit) has one owner CTA, the
+    CTAs fit one per SM, and shared memory stays within ``smem_per_block``. Among those,
+    the per-CTA gate product BR x 4U x H is the smallest; ties go to a resident W slice,
+    then to fewer floats read from L2 per CTA and step (h, and W if not resident), fewer
+    tiles and fewer CTAs. Raises ValueError where no plan fits. (T does not change the
+    plan; it is taken for the record.)"""
+    if min(T, B, H) < 1 or D not in (1, 2):
+        raise ValueError(f"no LSTM layer plan for T={T}, B={B}, H={H}, D={D}")
+    best, best_key = None, None
+    max_units = 1 << max(0, (H - 1).bit_length())  # the power of two >= H
+    for resident in (True, False):
+        units = 1
+        while units <= max_units:
+            nj = _cdiv(H, units)
+            max_groups = min(B, num_sms // (D * nj)) if D * nj <= num_sms else 0
+            seen = set()
+            for groups in range(1, max_groups + 1):
+                rows = _cdiv(B, groups)
+                if rows in seen:
+                    continue
+                seen.add(rows)
+                nbg = _cdiv(B, rows)
+                for tile in TILE_ROWS:
+                    if not 1 <= k_split(units, tile) <= MAX_K_SPLIT or \
+                            (tile > 4 and tile // 2 >= rows):
+                        continue  # threads do not divide, or a smaller tile holds the rows
+                    smem = smem_bytes(H, units, tile, rows, resident)
+                    if smem > smem_per_block:
+                        continue
+                    l2_floats = rows * H + (0 if resident else 4 * units * H)
+                    key = (rows * 4 * units * H, not resident, l2_floats, _cdiv(rows, tile),
+                           nj * nbg * D)
+                    if best_key is None or key < best_key:
+                        best_key = key
+                        best = LayerPlan(units, tile, rows, nj, nbg, D, resident, smem)
+            units *= 2
+    if best is None:
+        raise ValueError(f"the LSTM kernel has no plan for B={B}, H={H}, D={D} on "
+                         f"{num_sms} SMs with {smem_per_block} bytes of shared memory")
+    return best
 
 
 def lstm_direction_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
@@ -38,53 +140,112 @@ def lstm_direction_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) 
     return torch.stack(hs)
 
 
+def lstm_bidirectional_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                             hidden: int) -> torch.Tensor:
+    """Both directions in plain PyTorch: the reverse one runs on the flipped sequence and
+    is flipped back. (T, B, 8H), (2, 4H, H) -> (T, B, 2H)."""
+    four_h = 4 * hidden
+    fwd = lstm_direction_plain(x_proj[..., :four_h], w_hh[0], hidden)
+    rev = lstm_direction_plain(x_proj[..., four_h:].flip(0), w_hh[1], hidden).flip(0)
+    return torch.cat([fwd, rev], dim=-1)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         lib = build.load("lstm_sequence")
-        fn = lib.lstm_sequence
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = lib.lstm_layer
+        # xp, w, out, counters; T, B, H, D, U, BT, BR, resident; stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.lstm_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.lstm_device_limits.restype = ctypes.c_int
         lib.lstm_error_string.argtypes = [ctypes.c_int]
         lib.lstm_error_string.restype = ctypes.c_char_p
         _fn = fn
     return _fn
 
 
-def lstm_direction(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
-    """x_proj (T, B, 4H) float32, w_hh (4H, H) float32 -> (T, B, H) hidden states.
+def _raise(err: int, what: str):
+    msg = build.load("lstm_sequence").lstm_error_string(err).decode()
+    raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on the current
-    stream (x_proj must be contiguous; W_hh^T is made contiguous here)."""
-    global launches
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int):
+    """(SM count, opt-in shared memory per block) of CUDA device ``index``."""
+    _kernel()
+    lib = build.load("lstm_sequence")
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = lib.lstm_device_limits(ctypes.byref(sms), ctypes.byref(smem))
+    if err != 0:
+        _raise(err, "lstm_device_limits")
+    return sms.value, smem.value
+
+
+def _check(x_proj, w_hh, hidden, d):
     if x_proj.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError(f"lstm_direction takes float32, got {x_proj.dtype} and {w_hh.dtype}")
-    if (x_proj.dim() != 3 or x_proj.shape[2] != 4 * hidden
-            or tuple(w_hh.shape) != (4 * hidden, hidden)):
+        raise TypeError(f"the LSTM kernel takes float32, got {x_proj.dtype} and {w_hh.dtype}")
+    w_shape = (4 * hidden, hidden) if d == 1 else (d, 4 * hidden, hidden)
+    if x_proj.dim() != 3 or x_proj.shape[2] != d * 4 * hidden or tuple(w_hh.shape) != w_shape:
         raise ValueError(f"shapes do not match hidden={hidden}: x_proj {tuple(x_proj.shape)}, "
-                         f"w_hh {tuple(w_hh.shape)} (want (T, B, 4H) and (4H, H))")
+                         f"w_hh {tuple(w_hh.shape)} (want (T, B, {d * 4}H) and {w_shape})")
     if x_proj.device.type == "cpu" and w_hh.device.type == "cpu":
-        return lstm_direction_plain(x_proj, w_hh, hidden)
+        return False
     if x_proj.device.type != "cuda" or w_hh.device != x_proj.device:
         raise ValueError(f"x_proj and w_hh must share one CUDA device or both be on the "
                          f"CPU, got {x_proj.device} and {w_hh.device}")
-    if not x_proj.is_contiguous():
-        raise ValueError("lstm_direction's kernel takes a contiguous x_proj")
+    return True
+
+
+def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> torch.Tensor:
+    """One kernel launch over a layer of ``d`` directions (inputs already checked)."""
+    global launches
+    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
+        raise ValueError("the LSTM kernel takes contiguous x_proj and w_hh")
     t, b, _ = x_proj.shape
-    w_t = w_hh.T.contiguous()  # (H, 4H): neighbouring threads read neighbouring columns
-    out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_proj.device)
-    c_ws = torch.empty((b, hidden), dtype=torch.float32, device=x_proj.device)
+    out = torch.empty((t, b, d * hidden), dtype=torch.float32, device=x_proj.device)
+    if t == 0 or b == 0:
+        return out
     fn = _kernel()
-    with torch.cuda.device(x_proj.device):  # the launches go to the current device
+    index = x_proj.device.index if x_proj.device.index is not None else \
+        torch.cuda.current_device()
+    plan = plan_layer(t, b, hidden, d, *device_limits(index))
+    counters = torch.zeros(d * plan.batch_groups, dtype=torch.int32, device=x_proj.device)
+    with torch.cuda.device(x_proj.device):  # the launch goes to the current device
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x_proj.data_ptr(), w_t.data_ptr(), out.data_ptr(), c_ws.data_ptr(),
-                 t, b, hidden, stream)
+        err = fn(x_proj.data_ptr(), w_hh.data_ptr(), out.data_ptr(), counters.data_ptr(),
+                 t, b, hidden, d, plan.units, plan.tile_rows, plan.rows, int(plan.resident),
+                 stream)
     if err != 0:
-        msg = build.load("lstm_sequence").lstm_error_string(err).decode()
-        raise RuntimeError(f"lstm_sequence launch failed: CUDA error {err} ({msg})")
+        _raise(err, f"lstm_layer launch ({plan})")
     launches += 1
     return out
 
 
-__all__ = ["launches", "lstm_direction", "lstm_direction_plain"]
+def lstm_direction(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
+    """x_proj (T, B, 4H) float32, w_hh (4H, H) float32 -> (T, B, H) hidden states.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one direction) on
+    the current stream (x_proj must be contiguous; w_hh is made contiguous here)."""
+    if not _check(x_proj, w_hh, hidden, 1):
+        return lstm_direction_plain(x_proj, w_hh, hidden)
+    return _launch(x_proj, w_hh.contiguous(), hidden, 1)
+
+
+def lstm_bidirectional(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
+    """x_proj (T, B, 8H) float32, w_hh (2, 4H, H) float32 -> (T, B, 2H), forward then
+    reverse hidden states (see the module docstring). Both must be contiguous. CPU
+    tensors take the plain version; CUDA tensors launch the kernel once, both directions
+    together, on the current stream."""
+    on_card = _check(x_proj, w_hh, hidden, 2)
+    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
+        raise ValueError("lstm_bidirectional takes contiguous x_proj and w_hh")
+    if not on_card:
+        return lstm_bidirectional_plain(x_proj, w_hh, hidden)
+    return _launch(x_proj, w_hh, hidden, 2)
+
+
+__all__ = ["LayerPlan", "launches", "lstm_bidirectional", "lstm_bidirectional_plain",
+           "lstm_direction", "lstm_direction_plain", "plan_layer", "smem_bytes", "k_split"]

@@ -32,7 +32,7 @@ def family(name: str) -> str:
     n = name.lower()
     if "vq_nearest_code" in n:
         return "K1 vq_nearest_code"
-    if "lstm_step_kernel" in n:
+    if "lstm_layer_kernel" in n:
         return "K2 lstm_sequence"
     if any(s in n for s in ("conv", "cudnn", "fprop", "winograd", "implicit", "precomputed")):
         return "conv (cuDNN)"

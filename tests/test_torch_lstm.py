@@ -1,4 +1,5 @@
-"""K2, one LSTM direction (pantomatrix_tpu_torch/ops/lstm_cuda.py), and the LSTM module
+"""K2, the LSTM recurrence (pantomatrix_tpu_torch/ops/lstm_cuda.py: one direction, both
+directions of a layer, and the kernel's launch plan), and the LSTM module
 (pantomatrix_tpu_torch/nn/lstm.py) on the CPU, against the JAX package: the scan
 direction ``_lstm_direction``, the Pallas kernel run in interpret mode, and ``lstm``
 with the same weights. Inputs come from a numpy seed.
@@ -112,3 +113,126 @@ def test_kernel_source_builds_for_hopper_without_fast_math():
     assert build.library_path("lstm_sequence").parent == build.BUILD_DIR
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f or "fast-math" in f for f in build.NVCC_FLAGS)
+    # the library is named by the source and the flags together: other flags, other file
+    assert build.library_path("lstm_sequence") == \
+        build.library_path("lstm_sequence", list(build.NVCC_FLAGS))
+    other = [f for f in build.NVCC_FLAGS if f != "-O3"] + ["-O2"]
+    assert build.library_path("lstm_sequence", other) != build.library_path("lstm_sequence")
+
+
+# --- the kernel's launch plan: which CTA owns which (direction, batch row, unit) ---
+
+H100_SMS, H100_SMEM = 132, 232448
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("h", [48, 96, 128, 512, 1024])
+@pytest.mark.parametrize("b", [1, 5, 8, 13, 64, 128, 256])
+def test_plan_layer_owns_every_cell_once_and_fits_the_card(b, h, d):
+    plan = lstm_cuda.plan_layer(421, b, h, d, H100_SMS, H100_SMEM)
+    owners = np.zeros((d, b, h), np.int64)
+    # the CUDA grid is (unit group, batch group, direction); a CTA owns units
+    # [j * U, (j + 1) * U) and rows [g * BR, (g + 1) * BR), cut at H and B
+    for di in range(d):
+        for g in range(plan.batch_groups):
+            for j in range(plan.unit_groups):
+                owners[di, g * plan.rows:(g + 1) * plan.rows,
+                       j * plan.units:(j + 1) * plan.units] += 1
+    assert (owners == 1).all()
+    assert plan.ctas <= H100_SMS
+    assert plan.smem_bytes == lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows, plan.rows,
+                                                   plan.resident) <= H100_SMEM
+    # the kernel splits its 256 threads into (row tile, unit, k split within a warp)
+    assert plan.tile_rows in (4, 8, 16, 32)
+    assert 1 <= lstm_cuda.k_split(plan.units, plan.tile_rows) <= 32
+
+
+def test_plan_layer_keeps_w_hh_resident_at_the_path_shapes():
+    """CaMN/DisCo's layers at B = 8 and 64: W_hh's slices stay in shared memory and the
+    per-CTA product is the whole layer's split evenly over 128 CTAs."""
+    for b in (8, 64):
+        plan = lstm_cuda.plan_layer(421, b, 512, 2, H100_SMS, H100_SMEM)
+        assert plan.resident and plan.ctas == 128
+        assert plan.rows * plan.units * plan.ctas == b * 512 * 2
+
+
+def test_plan_layer_raises_where_nothing_fits():
+    with pytest.raises(ValueError):
+        lstm_cuda.plan_layer(10, 8, 512, 2, 132, 4 * 1024)
+    with pytest.raises(ValueError):
+        lstm_cuda.plan_layer(10, 8, 512, 3, 132, H100_SMEM)
+
+
+# --- both directions of a layer in one call ---
+
+def _layer_inputs(t, b, c, h, seed):
+    rng = np.random.RandomState(seed)
+    bound = h ** -0.5
+    u = lambda *shape: rng.uniform(-bound, bound, shape).astype(np.float32)
+    return (rng.normal(0, 1, (t, b, c)).astype(np.float32),
+            {sfx: (u(4 * h, c), u(4 * h, h), u(4 * h), u(4 * h)) for sfx in ("", "_r")})
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_plain_bidirectional_matches_jax_lstm(layers):
+    """Each layer as the port's module runs it (one projection against the stacked input
+    weights, then lstm_bidirectional_plain), against the JAX package's lstm."""
+    c, h = 20, 24
+    params = jax.tree_util.tree_map(np.asarray, init_lstm(jax.random.PRNGKey(3), c, h, layers))
+    x = np.random.RandomState(4).normal(0, 1, (2, 9, c)).astype(np.float32)
+    want = np.asarray(lstm(params, jnp.asarray(x), h, layers))
+    y = torch.from_numpy(x).transpose(0, 1)
+    for layer in range(layers):
+        p = lambda name: [torch.from_numpy(params[f"{name}_l{layer}{sfx}"])
+                          for sfx in ("", "_reverse")]
+        x_proj = (torch.matmul(y, torch.cat(p("weight_ih")).T)
+                  + torch.cat(p("bias_ih")) + torch.cat(p("bias_hh"))).contiguous()
+        y = lstm_cuda.lstm_bidirectional_plain(x_proj, torch.stack(p("weight_hh")), h)
+    got = y.transpose(0, 1).numpy()
+    assert got.shape == (2, 9, 2 * h)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_bidirectional_halves_are_the_two_scan_directions():
+    """The forward half is _lstm_direction on the sequence; the reverse half is
+    _lstm_direction on the flipped reverse projection, flipped back."""
+    t, b, h = 13, 3, 32
+    rng = np.random.RandomState(6)
+    xp = rng.normal(0, 1, (t, b, 8 * h)).astype(np.float32)
+    w = rng.normal(0, 0.2, (2, 4 * h, h)).astype(np.float32)
+    got = lstm_cuda.lstm_bidirectional(torch.from_numpy(xp), torch.from_numpy(w), h).numpy()
+    fwd = _lstm_direction(jnp.asarray(xp[..., :4 * h]), jnp.asarray(w[0]), h)
+    rev = _lstm_direction(jnp.asarray(xp[::-1, :, 4 * h:]), jnp.asarray(w[1]), h)[::-1]
+    assert got.shape == (t, b, 2 * h)
+    np.testing.assert_allclose(got[..., :h], np.asarray(fwd), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got[..., h:], np.asarray(rev), rtol=0, atol=ATOL)
+
+
+def test_bidirectional_wrapper_serves_cpu_with_the_plain_version_and_counts_no_launch():
+    rng = np.random.RandomState(7)
+    xp = torch.from_numpy(rng.normal(0, 1, (5, 2, 8 * 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.2, (2, 64, 16)).astype(np.float32))
+    before = lstm_cuda.launches
+    assert torch.equal(lstm_cuda.lstm_bidirectional(xp, w, 16),
+                       lstm_cuda.lstm_bidirectional_plain(xp, w, 16))
+    assert lstm_cuda.launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "4h_projection", "w_hh_shape", "non_contiguous",
+                                  "mixed_devices"])
+def test_bidirectional_wrapper_rejects_bad_inputs(case):
+    h = 8
+    xp, w = torch.zeros(4, 2, 8 * h), torch.zeros(2, 4 * h, h)
+    err = ValueError
+    if case == "dtype":
+        xp, w, err = xp.double(), w.double(), TypeError
+    elif case == "4h_projection":
+        xp = torch.zeros(4, 2, 4 * h)
+    elif case == "w_hh_shape":
+        w = torch.zeros(4 * h, h)
+    elif case == "non_contiguous":
+        xp = torch.zeros(2, 4, 8 * h).transpose(0, 1)
+    else:
+        w = w.to("meta")
+    with pytest.raises(err):
+        lstm_cuda.lstm_bidirectional(xp, w, h)
