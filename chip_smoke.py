@@ -6,8 +6,14 @@ Phases, each of which raises on failure (nothing is caught):
   1. device: the card's name and power limit (nvidia-smi); no CUDA device -> error;
   2. build: compile the CUDA kernels of pantomatrix_tpu_torch/csrc with nvcc;
   3. K1 (VQ nearest-code search) against its plain PyTorch version on the card, at
-     the test shapes and every shape the main path gives it; CUDA-event timings of the
-     kernel, the plain version and torch.cdist(z, cb).argmin(-1) as a library yardstick;
+     the test shapes and every shape the main path gives it (rows that differ must be
+     near-ties), two calls bitwise equal, with each shape's launch plan; device time per
+     launch (CUDA events around 20 back-to-back launches, replayed from a CUDA graph so
+     that the host's cost per call is out of it) of the kernel, the plain version and
+     torch.cdist(z, cb).argmin(-1) as a library yardstick; the kernel's 20 launches
+     issued eagerly (eager_ms) and one call alone (call_ms), which show the wrapper's
+     host cost; and the bounds: split TF32 on the tensor cores (bound_ms) and fp32 FMA
+     (bound_fp32_ms);
   4. parity: a tiny EMAGE config through inference + decode on the CPU (plain K1) and
      on the card (the kernel), both in full float32;
   5. main path at full width (EmageAudioConfig(), reference tokenizer widths, random
@@ -46,9 +52,12 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense TF32
+# on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+K1_REPS = 20  # back-to-back launches per pair of CUDA events
 
 K1_SHAPES = [
     # the kernel tests' shapes
@@ -97,7 +106,8 @@ def import_port():
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` after ``warmup`` calls:
+    device time plus the host's launch gap where the host is slower than the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -112,13 +122,63 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def eager_ms(fn, reps: int = K1_REPS, runs: int = 5, warmup: int = 3) -> float:
+    """Time per call of ``reps`` calls of ``fn`` issued back to back from Python, between
+    two CUDA events (median of ``runs``): the device time, or the host's rate where the
+    host takes longer per call than the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = K1_REPS, runs: int = 5) -> float:
+    """Device time per call of ``fn``: ``reps`` back-to-back calls captured in a CUDA
+    graph and replayed between two CUDA events, so that the host's cost per call is out
+    of it (median of ``runs`` replays, divided by ``reps``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graph capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def k1_bound(n: int, d: int, k: int):
-    """Least time for the search on an H100: each input read once and the indices
-    written once, against 2*N*K*D FMA work plus the code norms and the N*K distances."""
-    flops = 2.0 * n * k * d + 2.0 * k * d + 2.0 * n * k
+    """Least time for fp32-grade indices on an H100: each input read once and the
+    indices written once, against the split-TF32 product (three TF32 products of
+    2*N*K*D each on the tensor cores). Also the bound of the same search in fp32 FMA
+    (2*N*K*D plus the code norms and the N*K distances at the fp32 peak)."""
     nbytes = 4.0 * (n * d + k * d + n)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 3 * 2.0 * n * k * d / PEAK_TF32_FLOPS
+    t_fp32 = (2.0 * n * k * d + 2.0 * k * d + 2.0 * n * k) / PEAK_FP32_FLOPS
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(t_fp32, t_bytes))
 
 
 def phase_k1(device):
@@ -133,11 +193,14 @@ def phase_k1(device):
             lead = lead if isinstance(lead, tuple) else (lead,)
             z = torch.randn(*lead, d, generator=g).to(device)
             cb = torch.randn(k, d, generator=g).to(device)
-            got = vq_cuda.nearest_code(z, cb)
+            got, again = vq_cuda.nearest_code(z, cb), vq_cuda.nearest_code(z, cb)
             want = vq_cuda.nearest_code_plain(z, cb)
+            model = vq_cuda.nearest_code_split_plain(z, cb)
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != torch.int32:
                 raise AssertionError(f"K1 {shape}: {got.shape}/{got.dtype} vs {want.shape}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 {shape}: two calls differ")
             # rows that differ must be genuine near-ties: their two codes' distances,
             # recomputed in float64, within 1e-5 relative; and under 0.1% of rows
             z64, cb64 = z.reshape(-1, d).double(), cb.double()
@@ -151,13 +214,24 @@ def phase_k1(device):
             if n_diff and (float(rel.max()) >= 1e-5 or n_diff >= 1e-3 * n):
                 raise AssertionError(f"K1 {shape}: {n_diff} rows differ, max rel gap "
                                      f"{float(rel.max())}")
-            row = {"shape": [n, d, k], "mismatches": n_diff, "max_abs_err": float(gap.max())}
+            plan = vq_cuda.plan_search(n, d, k, torch.cuda.get_device_properties(
+                device).multi_processor_count)
+            row = {"shape": [n, d, k], "mismatches": n_diff, "max_abs_err": float(gap.max()),
+                   "split_model_mismatches": int((got != model).sum()),
+                   "bitwise_repeatable": True,
+                   "plan": {"cluster": plan.cluster, "ctas": plan.ctas,
+                            "codes_per_cta": plan.codes_per_cta,
+                            "smem_bytes": plan.smem_bytes}}
             if len(lead) == 1:
                 zc, cbc = z.contiguous(), cb.contiguous()
-                row["kernel_ms"] = cuda_ms(lambda: vq_cuda.nearest_code(zc, cbc))
-                row["plain_ms"] = cuda_ms(lambda: vq_cuda.nearest_code_plain(zc, cbc))
-                row["library_ms"] = cuda_ms(lambda: torch.cdist(zc, cbc).argmin(-1))
-                row["bound_ms"], row["bound_by"] = k1_bound(n, d, k)
+                kernel = lambda: vq_cuda.nearest_code(zc, cbc)
+                row["kernel_ms"] = graph_ms(kernel)
+                row["eager_ms"] = eager_ms(kernel)
+                row["call_ms"] = cuda_ms(kernel)
+                row["plain_ms"] = graph_ms(lambda: vq_cuda.nearest_code_plain(zc, cbc))
+                row["library_ms"] = graph_ms(lambda: torch.cdist(zc, cbc).argmin(-1))
+                row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = k1_bound(n, d, k)
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
             rows.append(row)
             log(f"K1 vq_nearest_code {row}")
     return rows
@@ -554,9 +628,12 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": head["kernel_ms"],
         "kernel_ms": head["kernel_ms"],
+        "call_ms": head["call_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
+        "bound_fp32_ms": head["bound_fp32_ms"],
+        "share_of_bound": head["share_of_bound"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
         "by_shape": k1_rows,

@@ -25,7 +25,8 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_profile_emage.py"),
              os.path.join(REPO, "scripts", "torch_profile_lstm.py"),
-             os.path.join(REPO, "scripts", "torch_profile_k2_phases.py")]
+             os.path.join(REPO, "scripts", "torch_profile_k2_phases.py"),
+             os.path.join(REPO, "scripts", "torch_k1_sweep.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
