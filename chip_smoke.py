@@ -33,7 +33,18 @@ Phases, each of which raises on failure (nothing is caught):
      once, checking shapes and 8 K2 launches (one per bidirectional layer), then timed
      calls at batch 8 and 64;
  10. DisCo at full width, the same, with 4 K2 launches;
- 11. the CaMN CLI (python -m pantomatrix_tpu_torch.cli.test_camn --random_init) on a 3 s WAV.
+ 11. the CaMN CLI (python -m pantomatrix_tpu_torch.cli.test_camn --random_init) on a 3 s WAV;
+ 12. bf16 serving (compute_dtype="bfloat16", and EMAGE's batched_wav) at full width:
+     EMAGE at batch 8 x 20 s in bf16 with and without batched_wav (finite, network
+     outputs bf16 and decoded outputs fp32, 11 K1 launches, decoded poses correlated
+     with the fp32 run) and at 128 x 60 s (31 K1 launches); CaMN and DisCo at batch 8
+     and 64 x 28.4 s in bf16 against fp32 (rot6d correlated > 0.98, 8 and 4 K2
+     launches a forward); wall times of the four cells in bf16 beside fp32, taken in
+     turns; the weights' cast and the LSTM x_proj upcast on the card; one EMAGE window
+     in bf16 against fp32 on the same inputs (every network output correlated > 0.99,
+     head indices agreeing on > 95% of frames outside near-ties of the random weights'
+     logits, see head_agreement); the EMAGE and CaMN CLIs with --compute_dtype
+     bfloat16. It also writes outputs/chip_smoke_bf16.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -558,15 +569,16 @@ def write_wav(path: Path, seconds: int = 3):
         w.writeframes((x * 32767).astype("<i2").tobytes())
 
 
-def run_cli(module: str, want: dict):
-    """Run ``python -m <module> --random_init`` on a 3 s WAV and check the saved npz."""
+def run_cli(module: str, want: dict, flags=()):
+    """Run ``python -m <module> --random_init [flags]`` on a 3 s WAV and check the saved
+    npz."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir, out_dir = Path(tmp, "audio"), Path(tmp, "out")
         audio_dir.mkdir()
         write_wav(audio_dir / "clip.wav")
         r = subprocess.run(
             [sys.executable, "-m", module, "--random_init", "--audio_folder", str(audio_dir),
-             "--save_folder", str(out_dir), "--device", "cuda"],
+             "--save_folder", str(out_dir), "--device", "cuda", *flags],
             cwd=str(HERE), capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
@@ -574,13 +586,249 @@ def run_cli(module: str, want: dict):
         for k, shape in want.items():
             if out[k].shape != shape or not np.isfinite(out[k]).all():
                 raise AssertionError(f"{module}: {k} {out[k].shape}, want {shape}")
-        log(f"CLI {module}: {r.stdout.strip()}")
+        log(f"CLI {module} {' '.join(flags)}: {r.stdout.strip()}")
 
 
 def phase_cli():
     frames = 3 * 30
     run_cli("pantomatrix_tpu_torch.cli.test_emage",
             {"poses": (frames, 165), "expressions": (frames, 100), "trans": (frames, 3)})
+
+
+BF16_EMAGE_CELLS = [(8, 20), (128, 60)]
+BF16_LSTM_BATCHES = [8, 64]
+BF16_REPS = 5
+
+
+def corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+
+
+def wall_stats(walls):
+    return {"median": float(np.median(walls)), "min": float(min(walls)),
+            "max": float(max(walls)), "n": len(walls)}
+
+
+def timed_in_turns(calls: dict, reps: int = BF16_REPS) -> dict:
+    """Host wall seconds of each call (ending in a synchronize), one warm-up each, then
+    ``reps`` rounds that take the calls in turns (a b c, c b a, ...)."""
+    names = list(calls)
+    for name in names:
+        calls[name]()
+    walls = {name: [] for name in names}
+    for r in range(reps):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return {name: wall_stats(w) for name, w in walls.items()}
+
+
+def cast_cost(module, reps: int = 5) -> dict:
+    """What casting ``module``'s weights to bf16 costs each time: host wall ms of
+    ``cast_floating`` (ending in a synchronize), and of ``cast_once`` finding its kept
+    copy valid."""
+    from pantomatrix_tpu_torch.utils.precision import cast_floating, cast_once
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cast_floating(module, torch.bfloat16)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    cast_once(module, torch.bfloat16)
+    kept = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        cast_once(module, torch.bfloat16)
+        kept.append(1e3 * (time.perf_counter() - t0))
+    n_tensors = sum(1 for _ in module.parameters()) + sum(1 for _ in module.buffers())
+    n_bytes = sum(t.numel() * t.element_size() for t in module.parameters())
+    return {"cast_floating_ms": float(np.median(walls)),
+            "cast_once_kept_ms": float(np.median(kept)), "tensors": n_tensors,
+            "fp32_param_bytes": n_bytes}
+
+
+def head_agreement(want: torch.Tensor, got: torch.Tensor) -> dict:
+    """How often the head's argmax over the codebook logits agrees between an fp32
+    (``want``) and a bf16 (``got``) run: over all frames, and outside near-ties, where a
+    frame whose two argmaxes' fp32 logits differ by less than 2^-6 of the row's largest
+    |logit| (about two bf16 ulps there) counts as agreeing."""
+    want = want.float()
+    a32, a16 = want.argmax(-1, keepdim=True), got.float().argmax(-1, keepdim=True)
+    gap = (want.gather(-1, a32) - want.gather(-1, a16)).squeeze(-1)
+    tie = gap < 2.0 ** -6 * want.abs().amax(-1)
+    same = (a32 == a16).squeeze(-1)
+    return {"all": float(same.float().mean()),
+            "outside_near_ties": float((same | tie).float().mean()),
+            "near_tie_flips": int((~same & tie).sum()),
+            "other_flips": int((~same & ~tie).sum())}
+
+
+def phase_bf16(card):
+    """12. bf16 serving at full width; see the module docstring."""
+    from pantomatrix_tpu_torch.cli.test_emage import load_models
+    from pantomatrix_tpu_torch.models import emage
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+    from pantomatrix_tpu_torch.models.emage import PARTS, _select_decode_inputs
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+    from pantomatrix_tpu_torch.utils.precision import cast_floating
+
+    bf16 = torch.bfloat16
+    result = {"card": card}
+    model, vq = load_models(None, True, "cuda")
+    cfg = model.config
+    g = torch.Generator().manual_seed(12)
+
+    # counted AR runs
+    def generate(audio, spk, **mode):
+        out = model.inference(audio, spk, vq, **mode)
+        dec = vq.decode(**_select_decode_inputs(cfg, out), get_global_motion=True,
+                        ref_trans=torch.zeros(1, 3, device="cuda"))
+        torch.cuda.synchronize()
+        return out, dec
+
+    emage_inputs = {}
+    modes = {"fp32": {}, "bf16": {"compute_dtype": "bfloat16"},
+             "bf16_batched_wav": {"compute_dtype": "bfloat16", "batched_wav": True}}
+    result["emage_runs"] = []
+    for bs, seconds in BF16_EMAGE_CELLS:
+        audio = (torch.rand(bs, seconds * 16000, generator=g) - 0.5).cuda()
+        spk = torch.zeros((bs, 1), dtype=torch.long, device="cuda")
+        emage_inputs[(bs, seconds)] = audio, spk
+        frames = seconds * 30
+        rounds, remain = divmod(frames - cfg.seed_frames, cfg.pose_length - cfg.seed_frames)
+        want_k1 = rounds + int(remain > cfg.seed_frames) + 1  # windows, remainder, decode
+        ref = None
+        for name, mode in modes.items():
+            if (bs, seconds) != BF16_EMAGE_CELLS[0] and name != "bf16":
+                continue  # at 128 x 60 s: the bf16 path only (fp32 is phase 5's)
+            vq_cuda.launches = lstm_cuda.launches = 0
+            out, dec = generate(audio, spk, **mode)
+            launches = vq_cuda.launches
+            net_dtype = bf16 if "compute_dtype" in mode else torch.float32
+            bad = [k for k, v in out.items() if v.dtype != net_dtype]
+            bad += [k for k in ("motion_axis_angle", "expression", "trans")
+                    if dec[k].dtype != torch.float32 or not bool(torch.isfinite(dec[k]).all())
+                    or dec[k].shape[:2] != (bs, frames)]
+            if bad or launches != want_k1 or lstm_cuda.launches != 0:
+                raise AssertionError(f"bf16 EMAGE {name} {bs} x {seconds} s: bad outputs {bad}, "
+                                     f"K1 launches {launches} (want {want_k1}), K2 "
+                                     f"{lstm_cuda.launches}")
+            row = {"mode": name, "batch": bs, "seconds": seconds, "k1_launches": launches}
+            if name == "fp32":
+                ref = dec
+            elif ref is not None:
+                row["poses_corr_vs_fp32"] = corr(dec["motion_axis_angle"], ref["motion_axis_angle"])
+                row["trans_corr_vs_fp32"] = corr(dec["trans"], ref["trans"])
+            result["emage_runs"].append(row)
+            log(f"bf16 serving: EMAGE {row}")
+        del out, dec, ref
+
+    # CaMN and DisCo, bf16 against fp32
+    lstm_models = {"camn": (CamnAudioModel(CamnAudioConfig(), seed=3), 8),
+                   "disco": (DiscoAudioModel(DiscoAudioConfig(), seed=3), 4)}
+    lstm_inputs = {}
+    result["lstm_runs"] = []
+    for name, (m, want_k2) in lstm_models.items():
+        for bs in BF16_LSTM_BATCHES:
+            audio = lstm_inputs.setdefault(
+                bs, ((torch.rand(bs, LSTM_SAMPLES, generator=g) * 2 - 1).cuda(),
+                     torch.zeros((bs, 1), dtype=torch.long, device="cuda")))
+            want = m(*audio)
+            lstm_cuda.launches = vq_cuda.launches = 0
+            got = m(*audio, compute_dtype="bfloat16")
+            torch.cuda.synchronize()
+            launches = lstm_cuda.launches
+            c = corr(got["motion"], want["motion"])
+            ok = all(got[k].dtype == torch.float32 and bool(torch.isfinite(got[k]).all())
+                     for k in ("motion", "motion_axis_angle"))
+            if not ok or c <= 0.98 or launches != want_k2 or vq_cuda.launches != 0:
+                raise AssertionError(f"bf16 {name} {bs} x {LSTM_SECONDS} s: rot6d corr {c}, "
+                                     f"fp32 finite outputs {ok}, K2 launches {launches} "
+                                     f"(want {want_k2}), K1 {vq_cuda.launches}")
+            row = {"model": name, "batch": bs, "rot6d_corr_vs_fp32": c,
+                   "axis_angle_corr_vs_fp32": corr(got["motion_axis_angle"],
+                                                   want["motion_axis_angle"]),
+                   "k2_launches": launches}
+            result["lstm_runs"].append(row)
+            log(f"bf16 serving: {row}")
+
+    # wall times of the four cells, bf16 beside fp32, in turns
+    timings = []
+    for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, 3)):
+        audio, spk = emage_inputs[(bs, seconds)]
+        # batched_wav only where its gate lets it act (8 x 20 s: 72 window-rows)
+        calls = {name: (lambda mode=mode: generate(audio, spk, **mode))
+                 for name, mode in modes.items()
+                 if (bs, seconds) == BF16_EMAGE_CELLS[0] or name != "bf16_batched_wav"}
+        for name, stats in timed_in_turns(calls, reps).items():
+            timings.append({"cell": f"EMAGE {bs} x {seconds} s", "mode": name, "wall_s": stats,
+                            "realtime_factor": bs * seconds / stats["median"]})
+    for name, (m, _) in lstm_models.items():
+        for bs in BF16_LSTM_BATCHES:
+            audio = lstm_inputs[bs]
+
+            def call(dt=None, m=m, audio=audio):
+                m(*audio, compute_dtype=dt)
+            for mode, stats in timed_in_turns({"fp32": call,
+                                               "bf16": lambda: call("bfloat16")}).items():
+                timings.append({"cell": f"{name} {bs} x {LSTM_SECONDS} s", "mode": mode,
+                                "wall_s": stats, "realtime_factor": bs * LSTM_SECONDS
+                                / stats["median"]})
+    for row in timings:
+        log(f"bf16 serving timed: {json.dumps(row)}")
+    result["timings"] = timings
+
+    # the weights' cast, against the calls it would be paid on, and the x_proj upcast
+    walls = {(r["cell"], r["mode"]): r["wall_s"]["median"] for r in timings}
+    costs = {"emage": cast_cost(model), "camn": cast_cost(lstm_models["camn"][0]),
+             "disco": cast_cost(lstm_models["disco"][0])}
+    for name, cost in costs.items():
+        cells = [c for (c, mode) in walls if mode == "bf16" and c.lower().startswith(name)]
+        cost["share_of_bf16_call"] = {c: cost["cast_floating_ms"] / 1e3 / walls[(c, "bf16")]
+                                      for c in cells}
+    xp = torch.randn(LSTM_FRAMES, 64, 8 * 512, device="cuda").to(bf16)
+    costs["x_proj_upcast_ms_at_b64"] = cuda_ms(lambda: xp.float(), reps=10)
+    w_hh = torch.randn(2, 4 * 512, 512, device="cuda").to(bf16)
+    costs["w_hh_upcast_ms"] = cuda_ms(lambda: w_hh.float(), reps=10)
+    result["cast"] = costs
+    log(f"bf16 serving: cast cost {json.dumps(costs)}")
+    # one window, bf16 against fp32 on the same inputs (last: its check reads how
+    # near-tied the random weights' head logits are)
+    bs, t = 8, cfg.pose_length
+    audio = (torch.rand(bs, t * emage.SAMPLES_PER_FRAME, generator=g) - 0.5).cuda()
+    spk = torch.randint(0, cfg.speaker_dims, (bs, 1), generator=g).cuda()
+    motion = (torch.rand(bs, t, 337, generator=g) * 2 - 1).cuda()
+    mask = torch.ones(bs, t, 337, device="cuda")
+    mask[:, :cfg.seed_frames] = 0
+    want = emage.emage_forward(model, audio, spk, motion, mask)
+    got = emage.emage_forward(cast_floating(model, bf16), audio.to(bf16), spk, motion.to(bf16),
+                              mask.to(bf16))
+    window = {k: corr(got[k], want[k]) for k in want}
+    agree = {k: head_agreement(want[f"cls_{k}"], got[f"cls_{k}"]) for k in PARTS}
+    if any(got[k].dtype != bf16 for k in got) or min(window.values()) <= 0.99 \
+            or min(a["outside_near_ties"] for a in agree.values()) <= 0.95:
+        raise AssertionError(f"bf16 window: corr {window}, head agreement {agree}, dtypes "
+                             f"{ {k: str(v.dtype) for k, v in got.items()} }")
+    result["emage_window"] = {"corr": window, "head_agreement": agree}
+    log(f"bf16 serving: one EMAGE window, bf16 vs fp32: corr {window}, head agreement {agree}")
+    del xp, w_hh, lstm_models, lstm_inputs, emage_inputs, model, vq
+    torch.cuda.empty_cache()
+
+    # the CLIs in bf16
+    frames = 3 * 30
+    run_cli("pantomatrix_tpu_torch.cli.test_emage",
+            {"poses": (frames, 165), "expressions": (frames, 100), "trans": (frames, 3)},
+            ("--compute_dtype", "bfloat16", "--batched_wav"))
+    run_cli("pantomatrix_tpu_torch.cli.test_camn", {"poses": (frames, 165)},
+            ("--compute_dtype", "bfloat16"))
+    return result
 
 
 def main():
@@ -617,6 +865,11 @@ def main():
     k2_launches = {name: phase_lstm_path(name, card) for name in ("camn", "disco")}
     # 11. CaMN CLI: 3 s at 15 fps, saved upsampled to 30 fps
     run_cli("pantomatrix_tpu_torch.cli.test_camn", {"poses": (90, 165)})
+    # 12. bf16 serving (counts K1 and K2 launches on its own paths)
+    bf16 = phase_bf16(card)
+    out_dir = HERE / "outputs"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_bf16.json").write_text(json.dumps(bf16, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     kernels = [{
@@ -637,6 +890,8 @@ def main():
         "library_ms": head["library_ms"],
         "shape": head["shape"],
         "by_shape": k1_rows,
+        "launches_bf16": {f"emage {r['mode']} {r['batch']} x {r['seconds']} s": r["k1_launches"]
+                          for r in bf16["emage_runs"] if r["mode"] != "fp32"},
     }]
     head = next(r for r in k2_rows
                 if tuple(r["shape"]) == K2_HEADLINE and r["directions"] == 2)
@@ -657,6 +912,8 @@ def main():
         "library_ms": head["library_ms"],
         "shape": head["shape"],
         "by_shape": k2_rows,
+        "launches_bf16": {f"{r['model']} {r['batch']} x {LSTM_SECONDS} s": r["k2_launches"]
+                          for r in bf16["lstm_runs"]},
     })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

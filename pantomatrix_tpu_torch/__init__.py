@@ -4,13 +4,16 @@ The JAX package ``pantomatrix_tpu`` is the reference this package is held agains
 this package imports nothing of it (nor JAX). Each module mirrors its JAX
 counterpart's path and names:
 
-- ``core``    rotation math, joint masking, velocity integration
-- ``nn``      layers, conv blocks, post-norm transformers, VQ lookup
+- ``core``    rotation math, joint masking, velocity integration, the SMPL-X rest pose
+- ``nn``      layers, conv blocks, post-norm transformers, VQ lookup, the LSTM
 - ``ops``     hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions
-- ``models``  EMAGE audio model and VQ tokenizer suite, ``from_pretrained`` API
+- ``models``  EMAGE audio model and VQ tokenizer suite, CaMN, DisCo, the
+              ``from_pretrained`` API and ``AutoModel``
+- ``utils``   the low-precision serving mode's parameter cast
 - ``io``      checkpoint and BEAT-format npz IO
-- ``data``    PCM WAV decode and resampling
-- ``cli``     ``test_emage`` inference CLI
+- ``data``    WAV and MP3 decode and resampling
+- ``native``  the libmpg123 MP3 binding
+- ``cli``     ``test_emage``, ``test_camn`` and ``test_disco`` inference CLIs
 
 Parameters live in ``nn.Module`` trees whose ``state_dict`` paths equal the JAX
 param-tree paths, so ``convert.py`` carries weights across with a strict load.

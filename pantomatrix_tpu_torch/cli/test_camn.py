@@ -5,6 +5,9 @@ upsampled x2 to 30 fps, as a BEAT-format npz per clip.
 
     python -m pantomatrix_tpu_torch.cli.test_camn --audio_folder in/ --save_folder out/ \
         --model_path <checkpoint dir>      # or --random_init for a smoke run
+
+``--compute_dtype bfloat16`` selects the low-precision serving mode; the default is the
+float32 parity path.
 """
 from __future__ import annotations
 
@@ -25,6 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random full-width weights instead of a checkpoint")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the default needs a CUDA card")
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"],
+                   help="opt-in low-precision serving; default float32 reference parity")
     return p
 
 
@@ -54,7 +60,8 @@ def run(args, model_cls, config_cls) -> None:
     for audio_path in audio_files_in(args.audio_folder):
         audio = torch.from_numpy(load_audio(audio_path, cfg.audio_sr))[None].to(device)
         speaker_id = torch.zeros((1, 1), dtype=torch.long, device=device)
-        motion = model(audio, speaker_id, seed_frames=cfg.seed_frames)["motion_axis_angle"]
+        motion = model(audio, speaker_id, seed_frames=cfg.seed_frames,
+                       compute_dtype=args.compute_dtype)["motion_axis_angle"]
         motion = motion.cpu().numpy()
         t = motion.shape[1]
         all_t += t

@@ -7,6 +7,9 @@ and saves BEAT-format npz (poses, expressions, trans) per clip.
 
     python -m pantomatrix_tpu_torch.cli.test_emage --audio_folder in/ --save_folder out/ \
         --model_path <checkpoint root>      # or --random_init for a smoke run
+
+``--compute_dtype bfloat16`` and ``--batched_wav`` select the serving modes of
+``EmageAudioModel.inference``; the default is the float32 parity path.
 """
 from __future__ import annotations
 
@@ -27,6 +30,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random full-width weights instead of a checkpoint")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the default needs a CUDA card")
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"],
+                   help="opt-in low-precision AR serving; default float32 reference parity")
+    p.add_argument("--batched_wav", action="store_true",
+                   help="opt-in: encode all full windows' audio in one WavEncoder call "
+                        "before the AR loop")
     return p
 
 
@@ -54,7 +63,8 @@ def audio_files_in(folder: str):
     return sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.endswith(".wav"))
 
 
-def inference_one(model, vq, audio_path: str, save_folder: str) -> int:
+def inference_one(model, vq, audio_path: str, save_folder: str, compute_dtype=None,
+                  batched_wav: bool = False) -> int:
     """Generate and save one clip; returns its frame count."""
     from ..data.audio import load_audio
     from ..io.beat_format import beat_format_save
@@ -66,7 +76,8 @@ def inference_one(model, vq, audio_path: str, save_folder: str) -> int:
     speaker_id = torch.zeros((1, 1), dtype=torch.long, device=device)
     trans = torch.zeros((1, 1, 3), device=device)
 
-    latent_dict = model.inference(audio, speaker_id, vq)
+    latent_dict = model.inference(audio, speaker_id, vq, compute_dtype=compute_dtype,
+                                  batched_wav=batched_wav)
     all_pred = vq.decode(**_select_decode_inputs(cfg, latent_dict), get_global_motion=True,
                          ref_trans=trans[:, 0])
     motion = all_pred["motion_axis_angle"].cpu().numpy()
@@ -88,7 +99,8 @@ def main(argv=None) -> None:
     all_t = 0
     t0 = time.time()
     for audio_path in audio_files_in(args.audio_folder):
-        all_t += inference_one(model, vq, audio_path, args.save_folder)
+        all_t += inference_one(model, vq, audio_path, args.save_folder,
+                               args.compute_dtype, args.batched_wav)
     print(f"generate total {all_t / model.config.pose_fps:.2f} seconds motion in "
           f"{time.time() - t0:.2f} seconds on {args.device}")
 

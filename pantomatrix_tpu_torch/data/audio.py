@@ -1,8 +1,10 @@
-"""WAV decode and resampling to 16 kHz mono (the port's own copy of the PCM path of
-``pantomatrix_tpu/data/audio.py``). Host-side numpy; MP3 input is not supported here.
+"""Audio decode and resampling to 16 kHz mono (the port's own copy of
+``pantomatrix_tpu/data/audio.py``). Host-side numpy.
 
-Formats: RIFF/WAVE PCM (u8/i16/i24/i32) and IEEE float32/64. Resampling is
-windowed-sinc polyphase (scipy's ``resample_poly`` with a Kaiser window).
+Formats: RIFF/WAVE PCM (u8/i16/i24/i32) and IEEE float32/64, and MP3 (an ID3 or MPEG
+frame-sync header, whatever the file's extension) through the system libmpg123
+(``native/mp3.py``). Resampling is windowed-sinc polyphase (scipy's ``resample_poly``
+with a Kaiser window).
 """
 from __future__ import annotations
 
@@ -32,13 +34,33 @@ def _decode_pcm(raw: bytes, sampwidth: int, n_channels: int) -> np.ndarray:
     return x
 
 
+def _is_mp3(header: bytes) -> bool:
+    """An ID3 tag, or an MPEG audio frame sync (11 set bits)."""
+    return header[:3] == b"ID3" or (len(header) >= 2 and header[0] == 0xFF
+                                    and (header[1] & 0xE0) == 0xE0)
+
+
+def _read_mp3(path: str) -> Tuple[np.ndarray, int]:
+    try:
+        from ..native import mp3  # libmpg123 ctypes binding
+
+        return mp3.decode(path)
+    except (ImportError, OSError) as e:  # OSError: libmpg123 shared object missing
+        raise ValueError(
+            f"{path}: MP3-encoded audio needs the system libmpg123 "
+            "(pantomatrix_tpu_torch/native/mp3.py); install it or provide PCM WAV"
+        ) from e
+
+
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Read a RIFF/WAVE file -> (float32 mono in [-1, 1], sample_rate)."""
+    """Read a RIFF/WAVE or MP3 file -> (float32 mono in [-1, 1], sample_rate)."""
     fmt = data = None
     with open(path, "rb") as f:
         header = f.read(12)
         if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
-            raise ValueError(f"{path}: not a RIFF/WAVE file (only PCM/float WAV is read)")
+            if _is_mp3(header):
+                return _read_mp3(path)
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
         # walk the chunks by hand so float WAVs work too (the wave module rejects them)
         while True:
             head = f.read(8)
@@ -82,7 +104,7 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_audio(path: str, sr: int = 16000) -> np.ndarray:
-    """float32 mono samples of a WAV file at ``sr``."""
+    """float32 mono samples of a WAV or MP3 file at ``sr``."""
     x, orig_sr = read_wav(path)
     return resample(x, orig_sr, sr)
 

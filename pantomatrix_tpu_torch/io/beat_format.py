@@ -1,7 +1,9 @@
 """BEAT-format motion npz save and linear time upsampling (counterpart of
-``pantomatrix_tpu/io/beat_format.py``)."""
+``pantomatrix_tpu/io/beat_format.py``), with the ground-offset translation from the
+SMPL-X rest pose when no translation is given."""
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -25,6 +27,19 @@ def time_upsample(data: np.ndarray, k: int) -> np.ndarray:
     return out.reshape(shape[:-2] + (k * t, c))
 
 
+def _ground_offset_trans(n_frames: int, betas: np.ndarray, dtype) -> Optional[np.ndarray]:
+    """The translation that puts the rest-pose feet on the ground, -(ankle_L +
+    ankle_R) / 2 (joints 10 and 11), for every frame; None without an SMPL-X archive."""
+    from ..core.smplx import default_model_path, load_smplx_rest, rest_pose_joints
+
+    model_path = default_model_path()
+    if model_path is None or not os.path.exists(model_path):
+        return None
+    joints = rest_pose_joints(load_smplx_rest(model_path), betas[:300]).numpy()
+    trans = -(joints[10] + joints[11]) / 2.0
+    return np.repeat(trans[None, :], n_frames, axis=0).astype(dtype)
+
+
 def beat_format_save(
     save_path: str,
     motion_data: np.ndarray,
@@ -35,18 +50,21 @@ def beat_format_save(
     upsample: Optional[int] = None,
 ) -> None:
     """Save (t, j*3) axis-angle motion as a BEAT-format npz: betas (300,), poses,
-    expressions (t, 100) and trans (t, 3), zeros where not given, scattered to the full
-    joint layout by ``mask`` and upsampled ``upsample`` times in time when given."""
+    expressions (t, 100) and trans (t, 3), scattered to the full joint layout by
+    ``mask`` and upsampled ``upsample`` times in time when given. Betas and
+    expressions not given are zeros; a translation not given is the ground offset of
+    the SMPL-X rest pose when the archive is found (``core/smplx.py``), else zeros."""
     motion_data = np.asarray(motion_data)
     n = motion_data.shape[0]
     betas = np.zeros((n, 300), motion_data.dtype) if betas is None else np.asarray(betas)
     if expressions is None:
         expressions = np.zeros((n, 100), motion_data.dtype)
     expressions = np.asarray(expressions)
-    # Without a translation the JAX package puts the rest-pose feet on the ground with
-    # an SMPL-X forward pass, and falls back to zeros when the SMPL-X model file is
-    # absent. The port has no SMPL-X forward pass yet, so it always writes zeros here.
-    trans = np.zeros((n, 3), motion_data.dtype) if trans is None else np.asarray(trans)
+    if trans is None:
+        trans = _ground_offset_trans(n, betas[0], motion_data.dtype)
+        if trans is None:
+            trans = np.zeros((n, 3), motion_data.dtype)
+    trans = np.asarray(trans)
 
     if mask is not None:
         motion_data = recover_from_mask(torch.from_numpy(motion_data), mask).numpy()

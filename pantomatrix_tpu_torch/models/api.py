@@ -70,14 +70,16 @@ class PretrainedModel:
 
 class CamnAudioModel(PretrainedModel, CamnAudio):
     """``model(audio, speaker_id, seed_frames=4, seed_motion=None,
-    return_axis_angle=True)`` runs ``camn_forward``."""
+    return_axis_angle=True, compute_dtype=None)`` runs ``camn_forward``;
+    ``compute_dtype="bfloat16"`` is the low-precision serving mode."""
 
     config_class = CamnAudioConfig
 
 
 class DiscoAudioModel(PretrainedModel, DiscoAudio):
     """``model(audio, speaker_id, seed_frames=4, seed_motion=None,
-    return_axis_angle=True)`` runs ``disco_forward``."""
+    return_axis_angle=True, compute_dtype=None)`` runs ``disco_forward``;
+    ``compute_dtype="bfloat16"`` is the low-precision serving mode."""
 
     config_class = DiscoAudioConfig
 
@@ -114,8 +116,11 @@ class EmageAudioModel(PretrainedModel, EmageAudio):
     config_class = EmageAudioConfig
 
     def inference(self, audio, speaker_id, vq_model: EmageVQSuite, masked_motion=None,
-                  mask=None):
-        return emage_inference(self, audio, speaker_id, vq_model, masked_motion, mask)
+                  mask=None, compute_dtype=None, batched_wav=False):
+        """``emage_inference``; ``compute_dtype="bfloat16"`` and ``batched_wav=True``
+        select the serving modes, the defaults the float32 parity path."""
+        return emage_inference(self, audio, speaker_id, vq_model, masked_motion, mask,
+                               compute_dtype=compute_dtype, batched_wav=batched_wav)
 
 
 MODEL_REGISTRY: Dict[str, Type[PretrainedModel]] = {

@@ -18,6 +18,7 @@ from ..core.masking import MASK_DICT
 from ..nn.blocks import MLP, WavEncoder
 from ..nn.layers import Embedding, strict_fp32
 from ..nn.lstm import LSTM
+from ..utils.precision import cast_once, compute_dtype_of
 from .common import (
     build_seed_motion,
     recombine_body_hands,
@@ -45,19 +46,28 @@ class CamnAudio(nn.Module):
             self.speaker_embedding = Embedding(cfg.speaker_dims, cfg.speaker_f, generator=g)
 
     def forward(self, audio, speaker_id, seed_frames: int = 4, seed_motion=None,
-                return_axis_angle: bool = True):
+                return_axis_angle: bool = True, compute_dtype=None):
         return camn_forward(self, audio, speaker_id, seed_frames, seed_motion,
-                            return_axis_angle)
+                            return_axis_angle, compute_dtype)
 
 
 @torch.no_grad()
 @strict_fp32()
 def camn_forward(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
                  seed_frames: int = 4, seed_motion: Optional[torch.Tensor] = None,
-                 return_axis_angle: bool = True) -> Dict[str, torch.Tensor]:
+                 return_axis_angle: bool = True, compute_dtype=None) -> Dict[str, torch.Tensor]:
     """audio (bs, samples) at 16 kHz, speaker_id (bs, 1) int -> ``motion`` rot6d
-    (bs, t, 258) and ``motion_axis_angle`` (bs, t, 165), in full float32."""
+    (bs, t, 258) and ``motion_axis_angle`` (bs, t, 165), in float32.
+
+    ``compute_dtype="bfloat16"``: the serving mode of the JAX package. The weights
+    (``utils/precision.cast_once``) and the audio are cast once; the conv, LSTM and MLP
+    work runs in bfloat16 (float32 reductions inside the primitives, the LSTM recurrence
+    in float32, see ``nn/lstm.py``); ``motion`` is cast back to float32 before the
+    axis-angle step. None, the default, is the float32 parity path."""
     cfg = model.config
+    dtype = compute_dtype_of(compute_dtype)
+    if dtype is not None:
+        model, audio = cast_once(model, dtype), audio.to(dtype)
     h = cfg.hidden_size
     audio_feat = model.audio_encoder(audio)
     bs, t, _ = audio_feat.shape
@@ -71,7 +81,7 @@ def camn_forward(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor
     hands = model.hands_motion_decoder(torch.cat([in_fea, body_out], dim=2))
     hands_out = model.hands_out(hands[:, :, :h] + hands[:, :, h:])
 
-    motion = recombine_body_hands(body_out, hands_out)
+    motion = recombine_body_hands(body_out, hands_out).float()
     out = {"motion": motion}
     if return_axis_angle:
         out["motion_axis_angle"] = rot6d_seq_to_axis_angle_masked(

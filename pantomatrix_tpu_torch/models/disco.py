@@ -17,6 +17,7 @@ from ..core.masking import MASK_DICT
 from ..nn.blocks import MLP, WavEncoder
 from ..nn.layers import Embedding, strict_fp32
 from ..nn.lstm import LSTM
+from ..utils.precision import cast_once, compute_dtype_of
 from .common import build_seed_motion, rot6d_seq_to_axis_angle_masked, speaker_features
 from .configs import DiscoAudioConfig
 
@@ -41,20 +42,27 @@ class DiscoAudio(nn.Module):
             self.speaker_embedding = Embedding(cfg.speaker_dims, cfg.speaker_f, generator=g)
 
     def forward(self, audio, speaker_id, seed_frames: int = 4, seed_motion=None,
-                return_axis_angle: bool = True):
+                return_axis_angle: bool = True, compute_dtype=None):
         return disco_forward(self, audio, speaker_id, seed_frames, seed_motion,
-                             return_axis_angle)
+                             return_axis_angle, compute_dtype)
 
 
 @torch.no_grad()
 @strict_fp32()
 def disco_forward(model: DiscoAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
                   seed_frames: int = 4, seed_motion: Optional[torch.Tensor] = None,
-                  return_axis_angle: bool = True) -> Dict[str, torch.Tensor]:
+                  return_axis_angle: bool = True, compute_dtype=None,
+                  ) -> Dict[str, torch.Tensor]:
     """audio (bs, samples) at 16 kHz, speaker_id (bs, 1) int -> ``motion`` rot6d
     (bs, t, 258), the blended content ``audio_fea_c`` and rhythm ``audio_fea_r``
-    features, and ``motion_axis_angle`` (bs, t, 165), in full float32."""
+    features, and ``motion_axis_angle`` (bs, t, 165), in float32.
+
+    ``compute_dtype="bfloat16"``: the serving mode, as in ``camn_forward``; the audio
+    features come back in bfloat16, ``motion`` and its axis angles in float32."""
     cfg = model.config
+    dtype = compute_dtype_of(compute_dtype)
+    if dtype is not None:
+        model, audio = cast_once(model, dtype), audio.to(dtype)
     h = cfg.hidden_size
     audio_feat = model.audio_encoder(audio)
     bs, t, _ = audio_feat.shape
@@ -70,7 +78,7 @@ def disco_forward(model: DiscoAudio, audio: torch.Tensor, speaker_id: torch.Tens
     in_fea = torch.cat([content, rhythm, speaker_features(model, speaker_id, audio_feat), seed],
                        dim=2)
     body = model.body_motion_decoder(in_fea)
-    motion = model.body_out(body[:, :, :h] + body[:, :, h:])
+    motion = model.body_out(body[:, :, :h] + body[:, :, h:]).float()
     out = {"motion": motion, "audio_fea_c": content, "audio_fea_r": rhythm}
     if return_axis_angle:
         out["motion_axis_angle"] = rot6d_seq_to_axis_angle_masked(

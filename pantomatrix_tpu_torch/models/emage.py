@@ -10,10 +10,15 @@ The JAX package runs the sliding-window generation as one ``lax.scan`` program; 
 is a Python loop over 64-frame windows with a 4-frame decoded seed, plus a remainder
 window. The three per-part branches, which JAX ``vmap``s over stacked params, are
 named submodules called in turn.
+
+Two opt-in serving modes follow the JAX package's: ``compute_dtype="bfloat16"`` runs
+the audio model in bfloat16 (weights cast once, reductions and the VQ suite in float32,
+see ``utils/precision.py``), and ``batched_wav`` encodes the audio of every full window
+in one WavEncoder call before the loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,10 +27,15 @@ from ..core.rotations import axis_angle_to_rotation_6d
 from ..nn.attention import TransformerDecoder, TransformerEncoder
 from ..nn.blocks import MLP, VQEncoder, WavEncoder, make_periodic_pe, periodic_positional_encoding
 from ..nn.layers import Embedding, Linear, log_softmax, normal, strict_fp32
+from ..utils.precision import cast_once, compute_dtype_of
 from .configs import EmageAudioConfig
 from .emage_vq import EmageVQSuite, vq_decode
 
 SAMPLES_PER_FRAME = 16000 // 30  # == 533, the reference's exact mapping
+
+# most rounds * batch window-rows that batched_wav encodes in one call; above it the
+# per-window encoder runs (the stage-1 conv activations are ~5.3 MB per window-row)
+BATCHED_WAV_MAX = 512
 
 PARTS = ("upper", "hands", "lower")
 
@@ -82,9 +92,15 @@ class EmageAudio(nn.Module):
 @torch.no_grad()
 @strict_fp32()
 def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
-                  masked_motion: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                  masked_motion: torch.Tensor, mask: torch.Tensor,
+                  audio_features: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  ) -> Dict[str, torch.Tensor]:
     """One masked-transformer pass over a (bs, t, 337) window with its audio
-    (bs, t * 533). Returns per-part latents ``rec_*`` and codebook logits ``cls_*``."""
+    (bs, t * 533). Returns per-part latents ``rec_*`` and codebook logits ``cls_*``,
+    in the dtype of the model's weights.
+
+    ``audio_features``: the window's precomputed (face, body) WavEncoder outputs, in
+    place of running the encoders on ``audio``."""
     h = model.config.hidden_size
     pe = model.position_embeddings.pe
 
@@ -93,8 +109,11 @@ def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tens
     body_hint = model.motion_encoder(masked_motion)
     body_hint_body = model.bodyhints_body(body_hint)
     body_hint_face = model.bodyhints_face(body_hint)
-    audio2face_fea = model.audio_encoder_face(audio)
-    audio2body_fea = model.audio_encoder_body(audio)
+    if audio_features is None:
+        audio2face_fea = model.audio_encoder_face(audio)
+        audio2body_fea = model.audio_encoder_body(audio)
+    else:
+        audio2face_fea, audio2body_fea = audio_features
 
     t_hint = body_hint_face.shape[1]
     # Reference quirk: BOTH branches truncate audio2face_fea; the body stream keeps
@@ -157,11 +176,35 @@ def _select_decode_inputs(cfg: EmageAudioConfig, net_out) -> Dict[str, Optional[
 
 
 def _window_step(model: EmageAudio, suite: EmageVQSuite, audio_slice, speaker_id,
-                 window_motion, window_mask):
-    """Forward, head routing and the VQ decode whose tail seeds the next window."""
-    net_out = emage_forward(model, audio_slice, speaker_id, window_motion, window_mask)
+                 window_motion, window_mask, audio_features=None):
+    """Forward, head routing and the VQ decode whose tail seeds the next window. The
+    suite decodes in float32; the seed comes back in the window's dtype."""
+    net_out = emage_forward(model, audio_slice, speaker_id, window_motion, window_mask,
+                            audio_features)
     decode = vq_decode(suite, **_select_decode_inputs(model.config, net_out))
-    return net_out, decode["all_motion4inference"][:, -model.config.seed_frames:, :]
+    last_motion = decode["all_motion4inference"][:, -model.config.seed_frames:, :]
+    return net_out, last_motion.to(window_motion.dtype)
+
+
+def use_batched_wav(rounds: int, bs: int) -> bool:
+    """Whether ``batched_wav`` encodes the full windows in one call: at most
+    ``BATCHED_WAV_MAX`` window-rows."""
+    return 0 < rounds * bs <= BATCHED_WAV_MAX
+
+
+@torch.no_grad()
+def batched_audio_features(model: EmageAudio, audio: torch.Tensor, rounds: int):
+    """Both WavEncoders over the audio of the ``rounds`` full windows at once, flattened
+    to (rounds * bs, window samples): per window, its (face, body) features."""
+    cfg = model.config
+    window, stride = cfg.pose_length, cfg.pose_length - cfg.seed_frames
+    bs = audio.shape[0]
+    wins = audio.unfold(1, window * SAMPLES_PER_FRAME, stride * SAMPLES_PER_FRAME)
+    flat = wins[:, :rounds].transpose(0, 1).reshape(rounds * bs, -1)
+    face = model.audio_encoder_face(flat)
+    body = model.audio_encoder_body(flat)
+    return list(zip(face.reshape(rounds, bs, *face.shape[1:]).unbind(0),
+                    body.reshape(rounds, bs, *body.shape[1:]).unbind(0)))
 
 
 def prepare_ar_inputs(cfg: EmageAudioConfig, audio: torch.Tensor,
@@ -198,29 +241,45 @@ def prepare_ar_inputs(cfg: EmageAudioConfig, audio: torch.Tensor,
 @strict_fp32()
 def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
                     suite: EmageVQSuite, masked_motion: Optional[torch.Tensor] = None,
-                    mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                    mask: Optional[torch.Tensor] = None, compute_dtype=None,
+                    batched_wav: bool = False) -> Dict[str, torch.Tensor]:
     """Sliding-window autoregressive generation over (bs, samples) audio.
 
-    64-frame windows overlap by ``seed_frames``; the previous window's decoded tail
-    seeds the next window's unmasked slots; outputs are concatenated minus the overlap,
-    plus a remainder window when ``remain > seed_frames``."""
+    64-frame windows overlap by ``seed_frames``; the previous window's decoded tail seeds
+    the next window's unmasked slots; outputs are concatenated minus the overlap, plus a
+    remainder window when ``remain > seed_frames``.
+
+    ``compute_dtype="bfloat16"``: the model's weights (``utils/precision.cast_once``),
+    the audio, the motion and the mask are cast once, before the loop, and the network
+    outputs come back in bfloat16; the suite decodes in float32. ``batched_wav``: both
+    WavEncoders run once over every full window's audio before the loop, when
+    ``use_batched_wav(rounds, bs)``; the remainder window encodes its own. Each mode is
+    the JAX package's, and neither is the float32 parity path (``None``, ``False``)."""
     cfg = model.config
     masked_motion, mask, rounds, remain = prepare_ar_inputs(cfg, audio, masked_motion, mask)
+    dtype = compute_dtype_of(compute_dtype)
+    if dtype is not None:
+        model = cast_once(model, dtype)
+        audio, masked_motion, mask = audio.to(dtype), masked_motion.to(dtype), mask.to(dtype)
     window, pre = cfg.pose_length, cfg.seed_frames
     stride = window - pre
+    feats = (batched_audio_features(model, audio, rounds)
+             if batched_wav and use_batched_wav(rounds, audio.shape[0]) else None)
 
-    def one_window(last_motion, start, size):
+    def one_window(last_motion, start, size, audio_features=None):
         wmask = mask[:, start:start + size]
         seed = torch.where(wmask[:, :pre] == 0, masked_motion[:, start:start + pre], last_motion)
         wmotion = torch.cat([seed, masked_motion[:, start + pre:start + size]], dim=1)
         wmask = torch.cat([torch.zeros_like(wmask[:, :pre]), wmask[:, pre:]], dim=1)
         audio_slice = audio[:, start * SAMPLES_PER_FRAME:(start + size) * SAMPLES_PER_FRAME]
-        return _window_step(model, suite, audio_slice, speaker_id, wmotion, wmask)
+        return _window_step(model, suite, audio_slice, speaker_id, wmotion, wmask,
+                            audio_features)
 
     pieces = []
     last_motion = masked_motion[:, :pre]
     for i in range(rounds):
-        net_out, last_motion = one_window(last_motion, i * stride, window)
+        net_out, last_motion = one_window(last_motion, i * stride, window,
+                                          None if feats is None else feats[i])
         pieces.append({k: v[:, :-pre] for k, v in net_out.items()})
     if remain > pre:
         # the remainder-only case (rounds == 0) seeds from the prepared motion
@@ -230,9 +289,12 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
 
 
 __all__ = [
+    "BATCHED_WAV_MAX",
     "EmageAudio",
     "SAMPLES_PER_FRAME",
+    "batched_audio_features",
     "emage_forward",
     "emage_inference",
     "prepare_ar_inputs",
+    "use_batched_wav",
 ]

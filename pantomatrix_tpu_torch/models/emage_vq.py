@@ -120,7 +120,14 @@ def vq_decode(
 ) -> Dict[str, Optional[torch.Tensor]]:
     """Decode any mix of code indices / continuous latents to the full-body 165-d
     axis-angle stream, the expression, the 337-d rot6d+foot stream that seeds the next
-    window, and, with ``get_global_motion``, the global translation."""
+    window, and, with ``get_global_motion``, the global translation.
+
+    The tokenizer suite runs in float32 whatever the serving mode: latents in a lower
+    precision are promoted here, as JAX type promotion does against the float32
+    suite, so the nearest-code kernel always takes float32."""
+    promote = lambda x: None if x is None else x.float()
+    face_latent, upper_latent = promote(face_latent), promote(upper_latent)
+    hands_latent, lower_latent = promote(hands_latent), promote(lower_latent)
     for t_in in (face_index, upper_index, hands_index, lower_index,
                  face_latent, upper_latent, hands_latent, lower_latent):
         if t_in is not None:

@@ -46,6 +46,8 @@ class MultiheadAttention(nn.Module):
         q = heads(linear(query, w_q, b_q))
         k = heads(linear(key, w_k, b_k))
         v = heads(linear(value, w_v, b_v))
+        # under bfloat16 scores torch's softmax computes in float32 and rounds once,
+        # which is the JAX package's explicit float32 softmax
         attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(Dh), dim=-1)
         out = attn @ v  # (B, H, Tq, Dh)
         B, _, Tq, _ = out.shape

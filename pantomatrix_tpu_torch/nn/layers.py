@@ -23,18 +23,27 @@ from torch import nn
 
 @contextlib.contextmanager
 def strict_fp32():
-    """Full float32 for matmuls and cuDNN convolutions inside the scope, restoring
+    """Float32 arithmetic for matmuls and cuDNN convolutions inside the scope, restoring
     the caller's settings after. cuDNN convolutions default to TF32, which keeps
     about three decimal digits; the autoregressive head argmax turns such noise into
-    discrete divergence, so the parity path runs in full float32.
+    discrete divergence, so the parity path runs in full float32. bfloat16/float16
+    matmuls accumulate in float32 too (cuBLAS may otherwise reduce split-K partial
+    sums in the low precision), as the JAX package's do.
     Usable as ``with strict_fp32():`` or as a decorator ``@strict_fp32()``."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul = torch.backends.cuda.matmul
+    prev = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            matmul.allow_bf16_reduced_precision_reduction,
+            matmul.allow_fp16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_fp16_reduced_precision_reduction) = prev
 
 
 # ---------------------------------------------------------------------------
@@ -61,14 +70,27 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return y.transpose(1, 2)
 
 
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
 def batch_norm1d(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
                  weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm1d over the last (channel) dim, on running statistics."""
+    """Eval-mode BatchNorm1d over the last (channel) dim, on running statistics.
+
+    Under bfloat16/float16 activations the per-channel scale and shift are computed in
+    float32 and applied in the activation dtype, as the JAX package does."""
+    if x.dtype in LOW_PRECISION:
+        scale = torch.rsqrt(running_var.float() + eps) * weight.float()
+        shift = bias.float() - running_mean.float() * scale
+        return x * scale.to(x.dtype) + shift.to(x.dtype)
     return (x - running_mean) * (torch.rsqrt(running_var + eps) * weight) + bias
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    """torch nn.LayerNorm over the last dim. Under bfloat16/float16 activations torch's
+    kernel computes the statistics and the affine in float32 and rounds the result
+    once, which is the JAX package's explicit float32 form."""
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
 
 

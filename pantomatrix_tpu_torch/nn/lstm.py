@@ -10,6 +10,13 @@ writes its states in place, so nothing is flipped or concatenated. Parameters ke
 torch's names: ``weight_ih_l{k}[_reverse]``, ``weight_hh_l{k}[_reverse]``,
 ``bias_ih_l{k}[_reverse]``, ``bias_hh_l{k}[_reverse]``. Eval mode only: the
 inter-layer dropout is the identity.
+
+Under bfloat16 (the serving mode's ``compute_dtype``) the input projection is a bfloat16
+matmul, as in the JAX package, but K2 takes float32 only: x_proj and the
+bfloat16-valued W_hh are upcast exactly, the recurrence runs in float32 and each layer's
+output is cast back to bfloat16. The weights are the same bfloat16 values as the JAX
+package's; the one difference is the recurrence state, which the JAX scan carries in
+bfloat16 (``pantomatrix_tpu/nn/lstm.py``) and which here is float32, so more precise.
 """
 from __future__ import annotations
 
@@ -51,7 +58,10 @@ class LSTM(nn.Module):
             w_ih = torch.cat(p("weight_ih"))  # (8H, C): forward rows, then reverse rows
             bias = torch.cat(p("bias_ih")) + torch.cat(p("bias_hh"))
             x_proj = torch.matmul(y, w_ih.T) + bias  # (T, B, 8H)
-            y = lstm_bidirectional(x_proj, torch.stack(p("weight_hh")), self.hidden_size)
+            # K2 takes float32: low-precision values are upcast exactly, and the
+            # layer's output is cast back (both no-ops in float32)
+            w_hh = torch.stack(p("weight_hh")).float()
+            y = lstm_bidirectional(x_proj.float(), w_hh, self.hidden_size).to(x_proj.dtype)
         return y.transpose(0, 1)
 
 

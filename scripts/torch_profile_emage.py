@@ -1,9 +1,12 @@
 """Where the time goes in the PyTorch/CUDA port's EMAGE main path, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_emage.py [--reps 5] [--out outputs/torch_profile_emage.json]
+    python3 scripts/torch_profile_emage.py [--reps 5] [--compute_dtype bfloat16]
+        [--batched_wav] [--out outputs/torch_profile_emage[_bfloat16][_batched_wav].json]
 
 For each cell (batch x seconds of 16 kHz audio; full-width EmageAudioConfig() and the
-reference tokenizer widths, random weights from a seed) it runs one warm-up call, then
+reference tokenizer widths, random weights from a seed) in the serving mode given
+(``--compute_dtype``, ``--batched_wav``; the default is the float32 parity path) it runs
+one warm-up call, then
 ``--reps`` timed calls (host clock around inference + final decode, ending in
 ``torch.cuda.synchronize()``), then one call under ``torch.profiler``. It reports the
 wall-time spread, the split between the AR inference loop and the final decode, the
@@ -36,7 +39,8 @@ def family(name: str) -> str:
         return "K2 lstm_sequence"
     if any(s in n for s in ("conv", "cudnn", "fprop", "winograd", "implicit", "precomputed")):
         return "conv (cuDNN)"
-    if any(s in n for s in ("gemm", "gemv", "cutlass", "cublas", "matmul", "dot_kernel")):
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "cublas", "matmul", "dot_kernel",
+                            "nvjet")):
         return "gemm (cuBLAS)"
     if "softmax" in n:
         return "softmax"
@@ -65,8 +69,13 @@ def busy_us(intervals):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--out", type=str, default=str(REPO / "outputs" / "torch_profile_emage.json"))
+    ap.add_argument("--compute_dtype", type=str, default=None, choices=["bfloat16", "float32"])
+    ap.add_argument("--batched_wav", action="store_true")
+    ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args()
+    mode = "".join(f"_{m}" for m in (args.compute_dtype, args.batched_wav and "batched_wav")
+                   if m)
+    out_path = args.out or str(REPO / "outputs" / f"torch_profile_emage{mode}.json")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this script measures the port on an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -79,7 +88,9 @@ def main():
     model, vq = load_models(None, True, "cuda")
     cfg = model.config
     g = torch.Generator().manual_seed(1)
-    results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "cells": []}
+    results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+               "compute_dtype": args.compute_dtype, "batched_wav": args.batched_wav,
+               "cells": []}
 
     for bs, seconds in CELLS:
         audio = (torch.rand(bs, seconds * 16000, generator=g) - 0.5).cuda()
@@ -89,7 +100,8 @@ def main():
         def call():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = model.inference(audio, spk, vq)
+            out = model.inference(audio, spk, vq, compute_dtype=args.compute_dtype,
+                                  batched_wav=args.batched_wav)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             vq.decode(**_select_decode_inputs(cfg, out), get_global_motion=True,
@@ -113,8 +125,12 @@ def main():
             by_family[f] = by_family.get(f, 0.0) + e.time_range.elapsed_us()
         busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
         kernel_sum = sum(by_family.values())
+        k1 = [e.time_range.elapsed_us() / 1e3
+              for e in sorted(kernels, key=lambda e: e.time_range.start)
+              if family(e.name) == "K1 vq_nearest_code"]
         cell = {
-            "batch": bs, "seconds": seconds,
+            "batch": bs, "seconds": seconds, "compute_dtype": args.compute_dtype,
+            "batched_wav": args.batched_wav,
             "wall_s_median": float(np.median(total)), "wall_s_min": float(min(total)),
             "wall_s_max": float(max(total)),
             "realtime_factor_median": bs * seconds / float(np.median(total)),
@@ -131,6 +147,7 @@ def main():
                                     sorted(by_family.items(), key=lambda kv: -kv[1])},
             "share_of_kernel_time": {k: v / kernel_sum for k, v in by_family.items()}
             if kernel_sum else {},
+            "k1_ms_by_launch": k1,  # in launch order: windows, remainder, final decode
             "top_kernels_ms": [
                 (e.key[:100], e.self_device_time_total / 1e3)
                 for e in sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:12]
@@ -140,8 +157,8 @@ def main():
         print(json.dumps(cell), flush=True)
         del audio
 
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(results, indent=1))
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(results, indent=1))
     print(card)
 
 

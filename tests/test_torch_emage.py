@@ -235,6 +235,57 @@ def test_emage_inference_and_decode_end_to_end(pair, frames):
     _compare_decode(suite, jsuite, sel, np.zeros((1, 3), np.float32))
 
 
+def _given_motion_and_mask(frames, bs=2):
+    """Caller-given motion, and a mask (0 = take the given motion) that opens the first
+    seed, window 2's seed slots and a few frames inside windows, differently per clip.
+    Shorter than the clip: prepare_ar_inputs pads both to the clip's frames."""
+    rng = np.random.RandomState(11)
+    motion = rng.uniform(-1, 1, (bs, frames, 337)).astype(np.float32)
+    mask = np.ones((bs, frames, 337), np.float32)
+    mask[:, :2] = 0
+    mask[:, 6:8] = 0
+    mask[0, 12:15] = 0
+    mask[1, 9] = 0
+    return motion, mask
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_emage_inference_with_given_motion_and_mask(pair, compute_dtype):
+    """The AR loop with a caller-given ``masked_motion`` and ``mask``: the seed slots
+    come from the given motion, not the decoded tail. Float32: every output within
+    1e-5 of JAX and head indices equal. bfloat16: the bounds of tests/test_torch_bf16.py
+    (correlation > 0.99, head-index agreement > 0.95)."""
+    params, jsuite, model, suite = pair
+    audio, spk = _audio(23), np.array([[1], [2]])  # 22 frames: 3 windows
+    motion, mask = _given_motion_and_mask(20)
+    want = jemage.emage_inference(params, JCFG, jnp.asarray(audio), jnp.asarray(spk), jsuite,
+                                  jnp.asarray(motion), jnp.asarray(mask),
+                                  compute_dtype=compute_dtype)
+    got = emage.emage_inference(model, torch.from_numpy(audio), torch.from_numpy(spk), suite,
+                                torch.from_numpy(motion), torch.from_numpy(mask),
+                                compute_dtype=compute_dtype)
+    # the given motion reaches the network: without it the outputs differ
+    free = emage.emage_inference(model, torch.from_numpy(audio), torch.from_numpy(spk), suite,
+                                 compute_dtype=compute_dtype)
+    assert not torch.equal(got["rec_upper"], free["rec_upper"])
+    assert set(got) == set(want)
+    jsel = jemage._select_decode_inputs(JCFG, want)
+    sel = emage._select_decode_inputs(TCFG, got)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        if compute_dtype is None:
+            _close(got[k], want[k], k, atol=1e-5)
+        else:
+            a = got[k].double().numpy().ravel()
+            b = np.asarray(want[k].astype(jnp.float32), np.float64).ravel()
+            assert np.corrcoef(a, b)[0, 1] > 0.99, k
+    for k in ("upper_index", "hands_index", "lower_index"):
+        if compute_dtype is None:
+            np.testing.assert_array_equal(sel[k].numpy(), np.asarray(jsel[k]), err_msg=k)
+        else:
+            assert float(np.mean(sel[k].numpy() == np.asarray(jsel[k]))) > 0.95, k
+
+
 def test_short_audio_raises(pair):
     _, _, model, suite = pair
     with pytest.raises(ValueError, match="too short"):
