@@ -18,7 +18,10 @@ Phases, each of which raises on failure (nothing is caught):
      on the card (the kernel), both in full float32;
   5. main path at full width (EmageAudioConfig(), reference tokenizer widths, random
      weights from a seed): batch 8 x 20 s through EmageAudioModel.inference and
-     EmageVQModel.decode, counting K1 launches; then one timed call at batch 128 x 60 s;
+     EmageVQModel.decode, twice: the first call captures the window step's CUDA graph
+     (its K1 count, with the capture's warm-up launches, is logged), the second replays
+     it and is the one whose K1 launches are counted; then one timed call at batch
+     128 x 60 s;
   6. the CLI (python -m pantomatrix_tpu_torch.cli.test_emage --random_init) on a 3 s WAV;
   7. K2 (the persistent LSTM layer kernel) against its plain PyTorch version on the card,
      for one direction (lstm_direction) and for both directions of a layer in one launch
@@ -44,7 +47,24 @@ Phases, each of which raises on failure (nothing is caught):
      in bf16 against fp32 on the same inputs (every network output correlated > 0.99,
      head indices agreeing on > 95% of frames outside near-ties of the random weights'
      logits, see head_agreement); the EMAGE and CaMN CLIs with --compute_dtype
-     bfloat16. It also writes outputs/chip_smoke_bf16.json.
+     bfloat16. It also writes outputs/chip_smoke_bf16.json;
+ 13. the window step as a CUDA graph (models/emage_graph.py) against the eager step on
+     the same inputs, at batch 8 and 128, in fp32, bf16 and bf16 with batched_wav
+     features: fp32 within 1e-5, bf16 within one bf16 ulp, head indices equal, bitwise
+     equality logged, K1 counted once per replay; CUDA-event ms per window of each; then
+     the wall of EMAGE 8 x 20 s and 128 x 60 s (inference + decode) with graphs against
+     the eager loop, in turns, in each mode, with the device's idle share (kernel time
+     under torch.profiler over the unprofiled median wall);
+ 14. streaming: StreamingEmageGenerator at batch 1 against offline emage_inference
+     (latents within 1e-5, head indices and frame count equal); a StreamingPool of 8
+     uneven sessions (frame counts equal to offline, first-window latents correlated
+     > 0.999 with the single stream, each session's translation continuing from its own
+     previous chunk); the bench_stream protocol at N = 1, 8, 32, 64 in fp32 and bf16;
+ 15. the daemon: MotionServer on 127.0.0.1, two MotionClients over HTTP with 3 s of
+     audio each, frames as expected and finite, equal to an in-process StreamingPool;
+ 16. SequenceGenerator for CaMN and DisCo at batch 8 (8 and 4 K2 launches), python -m
+     pantomatrix_tpu_torch.bench once (mfu < 1), and entry() at full width. Phases
+     13-16 write outputs/chip_smoke_serving.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -319,10 +339,12 @@ def phase_parity():
 
 
 def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
-    """Generate ``counted`` = (batch, seconds) once, checking the outputs and the K1
-    launch count, then time one call at ``timed`` after a warm-up."""
+    """Generate ``counted`` = (batch, seconds) twice, checking the outputs and the K1
+    launch count of the second (warm) call, then time one call at ``timed`` after a
+    warm-up."""
     from pantomatrix_tpu_torch.cli.test_emage import load_models
     from pantomatrix_tpu_torch.models.emage import _select_decode_inputs
+    from pantomatrix_tpu_torch.models.emage_graph import WARMUP_CALLS
     from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
 
     t0 = time.time()
@@ -345,6 +367,14 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     bs, seconds = counted
     frames = seconds * 30
     rounds = (frames - cfg.seed_frames) // (cfg.pose_length - cfg.seed_frames)
+    # the first call captures the window step's CUDA graph (its warm-up calls launch K1
+    # eagerly); the main path is the next call, which replays it
+    vq_cuda.launches = lstm_cuda.launches = 0
+    _, first_wall = generate(bs, seconds)
+    first_launches = vq_cuda.launches
+    if first_launches != rounds + 2 + WARMUP_CALLS:
+        raise AssertionError(f"main path first call: K1 launched {first_launches} times, want "
+                             f"{rounds + 2 + WARMUP_CALLS} (with the capture's warm-up)")
     vq_cuda.launches = lstm_cuda.launches = 0
     dec, wall = generate(bs, seconds)
     launches = vq_cuda.launches
@@ -359,7 +389,8 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
     if launches != rounds + 1 + 1:
         raise AssertionError(f"main path: K1 launched {launches} times, want {rounds + 2}")
     log(f"main path: batch {bs} x {seconds} s -> {expect}, finite; K1 launches {launches} "
-        f"({rounds} windows + remainder + final decode); first call {wall:.3f} s")
+        f"({rounds} graph-replayed windows + remainder + final decode); first call (graph "
+        f"capture) {first_wall:.3f} s with {first_launches} K1 launches; warm call {wall:.3f} s")
 
     bs, seconds = timed
     generate(bs, seconds)  # warm-up
@@ -370,6 +401,10 @@ def phase_main_path(device, card, counted=(8, 20), timed=(128, 60)):
               "realtime_factor": bs * seconds / wall, "k1_launches": vq_cuda.launches,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     log(f"main path timed: {json.dumps(result)}")
+    want = (seconds * 30 - cfg.seed_frames) // (cfg.pose_length - cfg.seed_frames) + 2
+    if result["k1_launches"] != want:
+        raise AssertionError(f"main path {bs} x {seconds} s: K1 launched "
+                             f"{result['k1_launches']} times, want {want}")
     return launches
 
 
@@ -708,6 +743,7 @@ def phase_bf16(card):
         for name, mode in modes.items():
             if (bs, seconds) != BF16_EMAGE_CELLS[0] and name != "bf16":
                 continue  # at 128 x 60 s: the bf16 path only (fp32 is phase 5's)
+            generate(audio, spk, **mode)  # captures this mode's window graph
             vq_cuda.launches = lstm_cuda.launches = 0
             out, dec = generate(audio, spk, **mode)
             launches = vq_cuda.launches
@@ -831,6 +867,333 @@ def phase_bf16(card):
     return result
 
 
+GRAPH_BATCHES = (8, 128)
+GRAPH_MODES = {"fp32": (None, False), "bf16": ("bfloat16", False),
+               "bf16_batched_wav": ("bfloat16", True)}
+GRAPH_FP32_ATOL = 1e-5
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (8 significant bits), for values in the normal range."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def window_inputs(model, bs, mode, g):
+    """One full window's inputs at batch ``bs`` in ``mode``: the module as called, audio,
+    speaker ids, motion, mask and (batched_wav) the WavEncoder features."""
+    from pantomatrix_tpu_torch.models.emage import SAMPLES_PER_FRAME, batched_audio_features
+    from pantomatrix_tpu_torch.utils.precision import cast_once, compute_dtype_of
+
+    cfg = model.config
+    dtype, features = GRAPH_MODES[mode]
+    dt = compute_dtype_of(dtype)
+    m = cast_once(model, dt)
+    cast = (lambda x: x) if dt is None else (lambda x: x.to(dt))
+    t = cfg.pose_length
+    audio = cast((torch.rand(bs, t * SAMPLES_PER_FRAME, generator=g) - 0.5).cuda())
+    spk = torch.randint(0, cfg.speaker_dims, (bs, 1), generator=g).cuda()
+    motion = cast((torch.rand(bs, t, 337, generator=g) * 2 - 1).cuda())
+    mask = torch.ones(bs, t, 337, device="cuda")
+    mask[:, :cfg.seed_frames] = 0
+    feats = batched_audio_features(m, audio, 1)[0] if features else None
+    return m, (audio, spk, motion, cast(mask)), feats
+
+
+def profiled_kernel_ms(fn):
+    """(device ms of the kernels traced over one call of ``fn``, kernels traced)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def phase_graph(card, model, vq):
+    """13. The window step as a CUDA graph against the eager step, and the AR call's wall
+    with graphs against without, in each serving mode."""
+    from pantomatrix_tpu_torch.models import emage
+    from pantomatrix_tpu_torch.models.emage_graph import WARMUP_CALLS, graphs_of
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+    from pantomatrix_tpu_torch.ops import vq_cuda
+
+    cfg = model.config
+    g = torch.Generator().manual_seed(13)
+    graph_step = emage.graph_window_step(graphs_of(model))
+    result = {"card": card, "windows": [], "calls": []}
+    for bs in GRAPH_BATCHES:
+        for mode in GRAPH_MODES:
+            m, ins, feats = window_inputs(model, bs, mode, g)
+            want_net, want_last = emage._window_step(m, vq, *ins, feats)
+            want = {**want_net, "last_motion": want_last}
+            before = vq_cuda.launches
+            net, last = graph_step(m, vq, *ins, feats)
+            got = {k: v.clone() for k, v in {**net, "last_motion": last}.items()}
+            torch.cuda.synchronize()
+            first_launches = vq_cuda.launches - before
+            row = {"batch": bs, "mode": mode, "first_call_k1_launches": first_launches,
+                   "bitwise_equal": all(torch.equal(got[k], want[k]) for k in want),
+                   "max_abs_err": {k: float((got[k].float() - want[k].float()).abs().max())
+                                   for k in want}}
+            if mode == "fp32":
+                bad = [k for k, e in row["max_abs_err"].items() if not e <= GRAPH_FP32_ATOL]
+            else:
+                row["max_err_in_bf16_ulps"] = {
+                    k: float(((got[k].float() - want[k].float()).abs()
+                              / bf16_ulp(torch.maximum(got[k].float().abs(),
+                                                       want[k].float().abs()))).max())
+                    for k in want if want[k].dtype == torch.bfloat16}
+                bad = [k for k, e in row["max_err_in_bf16_ulps"].items() if not e <= 1.0]
+                bad += [k for k, v in want.items() if v.dtype != torch.bfloat16
+                        and not row["max_abs_err"][k] <= GRAPH_FP32_ATOL]
+            heads = {p: torch.equal(got[f"cls_{p}"].argmax(-1), want[f"cls_{p}"].argmax(-1))
+                     for p in ("face", "upper", "hands", "lower")}
+            if bad or not all(heads.values()) or first_launches != 1 + WARMUP_CALLS:
+                raise AssertionError(f"graph step {bs} {mode}: off {bad}, heads {heads}, "
+                                     f"first call K1 launches {first_launches}: {row}")
+            before = vq_cuda.launches
+            graph_step(m, vq, *ins, feats)
+            if vq_cuda.launches - before != 1:
+                raise AssertionError(f"graph step {bs} {mode}: a replay counted "
+                                     f"{vq_cuda.launches - before} K1 launches, want 1")
+            row["eager_ms"] = cuda_ms(lambda: emage._window_step(m, vq, *ins, feats), reps=10)
+            row["replay_ms"] = cuda_ms(lambda: graph_step(m, vq, *ins, feats), reps=10)
+            result["windows"].append(row)
+            log(f"graph step: {json.dumps(row)}")
+            del want, got, net, last, ins, feats
+
+    # the AR call with graphs (emage_inference) against the eager loop, in turns
+    for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, 3)):
+        audio = (torch.rand(bs, seconds * 16000, generator=g) - 0.5).cuda()
+        spk = torch.zeros((bs, 1), dtype=torch.long, device="cuda")
+        zero = torch.zeros(1, 3, device="cuda")
+        calls = {}
+        for mode, (dtype, bw) in GRAPH_MODES.items():
+            if bw and not emage.use_batched_wav(
+                    (seconds * 30 - cfg.seed_frames) // (cfg.pose_length - cfg.seed_frames), bs):
+                continue  # the gate turns batched_wav off: the bf16 cell again
+
+            def call(eager, dtype=dtype, bw=bw):
+                if eager:  # emage_inference's loop with the eager step for every window
+                    with torch.no_grad(), strict_fp32():
+                        out = emage._inference_loop(model, audio, spk, vq, None, None, dtype,
+                                                    bw, emage._window_step)
+                else:
+                    out = emage.emage_inference(model, audio, spk, vq, compute_dtype=dtype,
+                                                batched_wav=bw)
+                vq.decode(**emage._select_decode_inputs(cfg, out), get_global_motion=True,
+                          ref_trans=zero)
+            calls[f"{mode} graph"] = lambda call=call: call(False)
+            calls[f"{mode} eager"] = lambda call=call: call(True)
+        walls = timed_in_turns(calls, reps)
+        for name, stats in walls.items():
+            row = {"cell": f"EMAGE {bs} x {seconds} s", "path": name, "wall_s": stats,
+                   "realtime_factor": bs * seconds / stats["median"], "card": card}
+            if (bs, seconds) == BF16_EMAGE_CELLS[0] or name.endswith("graph"):
+                # profiling a 128 x 60 s call costs seconds of host time per path: there
+                # only the graph paths (the eager ones' idle share is in PERF.md)
+                kernel_ms, traced = profiled_kernel_ms(calls[name])
+                row.update(profiled_kernel_ms=kernel_ms, kernels_traced=traced,
+                           device_idle_share=1 - kernel_ms / 1e3 / stats["median"])
+            result["calls"].append(row)
+            log(f"graph vs eager: {json.dumps(row)}")
+        del audio
+    return result
+
+
+def stream_session(gen, wave):
+    """Push ``wave`` in four uneven pieces, then flush; the emitted results."""
+    n = len(wave)
+    cuts = [0, 1000, n // 3, 2 * n // 3 + 1, n]
+    return [gen.push(wave[a:b]) for a, b in zip(cuts, cuts[1:])] + [gen.flush()]
+
+
+def phase_streaming(card, model, vq):
+    """14. Streaming against offline, the pool's sessions, and the pump sweep."""
+    from pantomatrix_tpu_torch.cli.bench_stream import bench_pool
+    from pantomatrix_tpu_torch.models.emage import emage_inference
+    from pantomatrix_tpu_torch.serve import StreamingEmageGenerator, StreamingPool
+
+    rng = np.random.RandomState(14)
+    result = {"card": card}
+    # one stream at batch 1 against offline emage_inference at batch 1 (10 s of audio)
+    wave = rng.uniform(-0.5, 0.5, 10 * 16000).astype(np.float32)
+    off = emage_inference(model, torch.from_numpy(wave)[None].cuda(),
+                          torch.zeros((1, 1), dtype=torch.long, device="cuda"), vq)
+    off = {k: v.cpu().numpy() for k, v in off.items()}
+    gen = StreamingEmageGenerator(model, vq, collect_latents=True)
+    outs = stream_session(gen, wave)
+    streamed = {k: np.concatenate([lat[k] for lat in gen.latents], 1) for k in gen.latents[0]}
+    frames = sum(o.motion_axis_angle.shape[0] for o in outs)
+    err = {k: float(np.abs(streamed[k] - off[k]).max()) for k in off}
+    heads = all(np.array_equal(streamed[f"cls_{p}"].argmax(-1), off[f"cls_{p}"].argmax(-1))
+                for p in ("face", "upper", "hands", "lower"))
+    if frames != off["rec_face"].shape[1] or max(err.values()) > 1e-5 or not heads:
+        raise AssertionError(f"streaming vs offline: {frames} frames (want "
+                             f"{off['rec_face'].shape[1]}), latents off by {err}, heads {heads}")
+    result["stream_vs_offline"] = {"frames": frames, "max_abs_err": err}
+    log(f"streaming: batch-1 stream vs offline: {frames} frames, latents max abs err {err}")
+
+    # StreamingPool at N = 8 sessions of uneven length against their offline runs
+    lens = [int(16000 * s) for s in (3.1, 4.0, 5.5, 2.6, 6.2, 3.7, 4.9, 5.0)]
+    waves = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in lens]
+    pool = StreamingPool(model, vq, batch=8)
+    sids = [pool.open(speaker_id=0, collect_latents=True) for _ in range(8)]
+    emitted = {sid: [] for sid in sids}
+    cuts = [0, 20000, 45000, 70000, max(lens)]
+    for a, b in zip(cuts, cuts[1:]):
+        for sid, w in zip(sids, waves):
+            if a < len(w):
+                pool.feed(sid, w[a:min(b, len(w))])
+        for sid, res in pool.pump():
+            emitted[sid].append(res)
+    for sid in sids:
+        emitted[sid].append(pool.flush(sid))
+    rows = []
+    for i, (sid, w) in enumerate(zip(sids, waves)):
+        want = emage_inference(model, torch.from_numpy(w)[None].cuda(),
+                               torch.zeros((1, 1), dtype=torch.long, device="cuda"), vq)
+        single = StreamingEmageGenerator(model, vq, collect_latents=True)
+        single_outs = stream_session(single, w)
+        lat = pool.session(sid).latents
+        frames = sum(r.motion_axis_angle.shape[0] for r in emitted[sid])
+        c = corr(torch.from_numpy(lat[0]["rec_face"]), torch.from_numpy(
+            single.latents[0]["rec_face"]))
+        chunks = [r for r in emitted[sid] if r.trans.shape[0]]
+        # x and z integrate from the previous chunk's last position (y is direct)
+        jumps = [float(np.abs(b.trans[0, [0, 2]] - a.trans[-1, [0, 2]]).max())
+                 for a, b in zip(chunks, chunks[1:])]
+        row = {"session": i, "frames": frames, "offline_frames": want["rec_face"].shape[1],
+               "first_window_rec_face_corr_vs_single": c,
+               "trans_continuity_max_abs": max(jumps), "chunks": len(chunks),
+               "last_trans": chunks[-1].trans[-1].tolist(),
+               "single_last_trans": single_outs[-1].trans[-1].tolist()
+               if single_outs[-1].trans.shape[0] else None}
+        rows.append(row)
+        if frames != row["offline_frames"] or not c > 0.999 or max(jumps) > 1e-6:
+            raise AssertionError(f"pool session {i}: {row}")
+    ends = {tuple(np.round(r["last_trans"], 6)) for r in rows}
+    if len(ends) < 2:
+        raise AssertionError("pool: every session ended at one translation; the continuity "
+                             "check cannot tell sessions apart")
+    result["pool_sessions"] = rows
+    log(f"streaming: pool of 8 uneven sessions: {json.dumps(rows)}")
+
+    # the bench_stream protocol, swept over N in both modes
+    result["pump"] = []
+    for dtype in (None, "bfloat16"):
+        for n in (1, 8, 32, 64):
+            line = bench_pool(model, vq, n, 10, dtype)
+            line.update(compute_dtype=dtype or "float32", card=card)
+            result["pump"].append(line)
+            log(f"bench_stream: {json.dumps(line)}")
+    return result
+
+
+def phase_daemon(card, model, vq):
+    """15. MotionServer on 127.0.0.1, two clients over HTTP, against an in-process pool."""
+    from pantomatrix_tpu_torch.serve import StreamingPool
+    from pantomatrix_tpu_torch.serve_http import MotionClient, MotionServer
+
+    rng = np.random.RandomState(15)
+    waves = [rng.uniform(-0.5, 0.5, 3 * 16000).astype(np.float32) for _ in range(2)]
+    frames = 3 * 30
+    server = MotionServer(model, vq, batch=2).start()
+    try:
+        clients = [MotionClient(server.host, server.port) for _ in waves]
+        sids = [c.open_session(speaker_id=0) for c in clients]
+        for c, sid, w in zip(clients, sids, waves):
+            c.send_audio(sid, w)
+        got = []
+        for c, sid in zip(clients, sids):
+            chunks, n = [], 0
+            deadline = time.monotonic() + 120
+            stride = model.config.pose_length - model.config.seed_frames
+            while n < (frames - model.config.seed_frames) // stride * stride:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"daemon: {n} frames before the deadline")
+                r = c.read_motion(sid, timeout_ms=1000)
+                chunks.append(r)
+                n += r.motion_axis_angle.shape[0]
+            chunks.append(c.flush(sid))
+            c.close_session(sid)
+            got.append(chunks)
+        health = clients[0].health()
+    finally:
+        server.stop()
+    pool = StreamingPool(model, vq, batch=2)
+    psids = [pool.open(speaker_id=0) for _ in range(2)]
+    want = {sid: [] for sid in psids}
+    for sid, w in zip(psids, waves):
+        pool.feed(sid, w)
+    for sid, r in pool.pump():
+        want[sid].append(r)
+    for sid in psids:
+        want[sid].append(pool.flush(sid))
+    cat = lambda rs, f: np.concatenate([getattr(r, f) for r in rs])
+    errs = []
+    for chunks, sid in zip(got, psids):
+        e = {f: float(np.abs(cat(chunks, f) - cat(want[sid], f)).max())
+             for f in ("motion_axis_angle", "expressions", "trans")}
+        t = cat(chunks, "motion_axis_angle").shape[0]
+        ok = all(np.isfinite(cat(chunks, f)).all() for f in ("motion_axis_angle", "trans"))
+        if t != frames or not ok or max(e.values()) > 1e-5:
+            raise AssertionError(f"daemon: {t} frames (want {frames}), finite {ok}, against "
+                                 f"the in-process pool {e}")
+        errs.append(e)
+    log(f"daemon: two HTTP clients x 3 s -> {frames} frames each, finite; against an "
+        f"in-process pool at batch 2: max abs err {errs}; health {health}")
+    return {"max_abs_err": errs, "health": health, "card": card}
+
+
+def phase_rest(card):
+    """16. SequenceGenerator for CaMN and DisCo, the benchmark script, and entry()."""
+    from pantomatrix_tpu_torch.entry import entry
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+    from pantomatrix_tpu_torch.serve import SequenceGenerator
+
+    rng = np.random.RandomState(16)
+    waves = [rng.uniform(-0.5, 0.5, int(16000 * s)).astype(np.float32)
+             for s in (2.0, 3.5, 5.0, 4.2, 6.0, 2.7, 7.9, 3.3)]
+    result = {"card": card}
+    for name, cls, cfg_cls, want in (("camn", CamnAudioModel, CamnAudioConfig, 8),
+                                     ("disco", DiscoAudioModel, DiscoAudioConfig, 4)):
+        gen = SequenceGenerator(cls(cfg_cls(), seed=3), batch_size=8, bucket_seconds=8.0)
+        lstm_cuda.launches = 0
+        out = gen.generate(waves, speaker_ids=[0] * 8)
+        fps = gen.model.config.pose_fps
+        ok = all(m.shape == (len(w) * fps // 16000, 165) and np.isfinite(m).all()
+                 for m, w in zip(out, waves))
+        if not ok or lstm_cuda.launches != want:
+            raise AssertionError(f"SequenceGenerator {name}: shapes/finite {ok}, K2 launches "
+                                 f"{lstm_cuda.launches} (want {want})")
+        result[f"{name}_k2_launches"] = lstm_cuda.launches
+        log(f"SequenceGenerator {name}: 8 clips in one batch-8 bucket, K2 launches "
+            f"{lstm_cuda.launches}")
+    r = subprocess.run([sys.executable, "-m", "pantomatrix_tpu_torch.bench", "--reps", "3",
+                        "--iters", "2"], cwd=str(HERE), capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"bench failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    if not bench["mfu"] < 1:
+        raise AssertionError(f"bench: mfu {bench['mfu']}")
+    result["bench"] = bench
+    log(f"bench: {json.dumps(bench)}")
+    fn, args = entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes["rec_face"] != (1, 64, 256) or not all(bool(torch.isfinite(v).all())
+                                                     for v in out.values()):
+        raise AssertionError(f"entry(): {shapes}")
+    log(f"entry(): full-width window forward -> {shapes}, finite")
+    return result
+
+
 def main():
     t_all = time.time()
     # 1. device
@@ -870,6 +1233,18 @@ def main():
     out_dir = HERE / "outputs"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_bf16.json").write_text(json.dumps(bf16, indent=1))
+    # 13-15. the window step as a CUDA graph, streaming, the daemon (one full-width model)
+    from pantomatrix_tpu_torch.cli.test_emage import load_models
+
+    model, vq = load_models(None, True, "cuda")
+    serving = {"graph": phase_graph(card, model, vq),
+               "streaming": phase_streaming(card, model, vq),
+               "daemon": phase_daemon(card, model, vq)}
+    del model, vq
+    torch.cuda.empty_cache()
+    # 16. SequenceGenerator, the benchmark script, entry()
+    serving["rest"] = phase_rest(card)
+    (out_dir / "chip_smoke_serving.json").write_text(json.dumps(serving, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     kernels = [{

@@ -49,15 +49,33 @@ def select_with_mask(motion: torch.Tensor, mask: Sequence[bool]) -> torch.Tensor
     return motion.reshape(lead + (len(mask), c))[..., idx, :].reshape(lead + (len(idx) * c,))
 
 
+def _runs(mask: Sequence[bool]):
+    """The mask's runs of kept joints, as (first, end) pairs."""
+    runs, start = [], None
+    for i, keep in enumerate(list(mask) + [False]):
+        if keep and start is None:
+            start = i
+        elif not keep and start is not None:
+            runs.append((start, i))
+            start = None
+    return runs
+
+
 def recover_from_mask(selected_motion: torch.Tensor, mask: Sequence[bool]) -> torch.Tensor:
     """Scatter per-joint channels (..., sum(mask)*c) back into the full (..., len(mask)*c)
-    layout, zeros at the joints the mask leaves out."""
-    idx = [i for i, keep in enumerate(mask) if keep]
-    c = selected_motion.shape[-1] // len(idx)
+    layout, zeros at the joints the mask leaves out. Writes one slice per run of kept
+    joints: an index list would be copied from the host on every call, which a CUDA
+    graph capture (``models/emage_graph.py``) does not allow."""
+    n_kept = sum(1 for keep in mask if keep)
+    c = selected_motion.shape[-1] // n_kept
     lead = selected_motion.shape[:-1]
-    out = selected_motion.new_zeros(lead + (len(mask), c))
-    out[..., idx, :] = selected_motion.reshape(lead + (len(idx), c))
-    return out.reshape(lead + (len(mask) * c,))
+    out = selected_motion.new_zeros(lead + (len(mask) * c,))
+    src = 0
+    for first, end in _runs(mask):
+        width = (end - first) * c
+        out[..., first * c:end * c] = selected_motion[..., src:src + width]
+        src += width
+    return out
 
 
 # the reference's tensor-variant name

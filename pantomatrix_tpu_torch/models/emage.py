@@ -29,6 +29,7 @@ from ..nn.blocks import MLP, VQEncoder, WavEncoder, make_periodic_pe, periodic_p
 from ..nn.layers import Embedding, Linear, log_softmax, normal, strict_fp32
 from ..utils.precision import cast_once, compute_dtype_of
 from .configs import EmageAudioConfig
+from .emage_graph import WindowStepGraphs, graphs_of, step_key
 from .emage_vq import EmageVQSuite, vq_decode
 
 SAMPLES_PER_FRAME = 16000 // 30  # == 533, the reference's exact mapping
@@ -175,6 +176,16 @@ def _select_decode_inputs(cfg: EmageAudioConfig, net_out) -> Dict[str, Optional[
     }
 
 
+def _decoder_halo(suite: EmageVQSuite) -> int:
+    """One-sided temporal receptive field of the VQ part decoders: 2 ResBlocks (two k=3
+    convs each, +-2 frames), ``vae_layer`` up convs (+-1 each) and the final conv (+-1),
+    so 5 + vae_layer. Everything else in ``vq_decode`` is frame-local, so frame f of a
+    chunk [start, end) decoded alone equals the whole sequence's decode when
+    f - start >= halo and end - 1 - f >= halo (``serve.StreamingEmageGenerator``)."""
+    return 5 + max(getattr(suite, p).config.vae_layer
+                   for p in ("face", "upper", "hands", "lower"))
+
+
 def _window_step(model: EmageAudio, suite: EmageVQSuite, audio_slice, speaker_id,
                  window_motion, window_mask, audio_features=None):
     """Forward, head routing and the VQ decode whose tail seeds the next window. The
@@ -249,12 +260,46 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
     the next window's unmasked slots; outputs are concatenated minus the overlap, plus a
     remainder window when ``remain > seed_frames``.
 
+    On CUDA tensors every full window replays a CUDA graph of ``_window_step``
+    (``models/emage_graph.py``), captured on the model's first call at each batch and
+    mode; the remainder window, whose length differs per clip, runs eagerly. On CPU
+    tensors every window runs eagerly.
+
     ``compute_dtype="bfloat16"``: the model's weights (``utils/precision.cast_once``),
     the audio, the motion and the mask are cast once, before the loop, and the network
     outputs come back in bfloat16; the suite decodes in float32. ``batched_wav``: both
     WavEncoders run once over every full window's audio before the loop, when
     ``use_batched_wav(rounds, bs)``; the remainder window encodes its own. Each mode is
     the JAX package's, and neither is the float32 parity path (``None``, ``False``)."""
+    step = graph_window_step(graphs_of(model)) if audio.is_cuda else _window_step
+    return _inference_loop(model, audio, speaker_id, suite, masked_motion, mask,
+                           compute_dtype, batched_wav, step)
+
+
+def graph_window_step(cache: WindowStepGraphs):
+    """``_window_step`` with its signature, by a replay of its graph in ``cache``. The
+    outputs are the graph's static tensors: consume them before its next replay."""
+
+    def step(model, suite, audio_slice, speaker_id, window_motion, window_mask,
+             audio_features=None):
+        has_features = audio_features is not None
+        face, body = audio_features if has_features else (None, None)
+
+        def fn(a, s, m, k, f, b):
+            return _window_step(model, suite, a, s, m, k, (f, b) if has_features else None)
+
+        return cache.run(step_key(model, suite, window_motion, has_features),
+                         fn, (audio_slice, speaker_id, window_motion, window_mask, face, body),
+                         (model, suite))
+
+    return step
+
+
+def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, compute_dtype,
+                    batched_wav, full_window_step):
+    """``emage_inference`` with ``full_window_step`` (``_window_step``'s signature) for
+    the full windows. Each window's kept frames are copied into outputs allocated at the
+    full length before the next window runs, so the step may reuse its outputs."""
     cfg = model.config
     masked_motion, mask, rounds, remain = prepare_ar_inputs(cfg, audio, masked_motion, mask)
     dtype = compute_dtype_of(compute_dtype)
@@ -263,29 +308,36 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
         audio, masked_motion, mask = audio.to(dtype), masked_motion.to(dtype), mask.to(dtype)
     window, pre = cfg.pose_length, cfg.seed_frames
     stride = window - pre
+    bs = audio.shape[0]
     feats = (batched_audio_features(model, audio, rounds)
-             if batched_wav and use_batched_wav(rounds, audio.shape[0]) else None)
+             if batched_wav and use_batched_wav(rounds, bs) else None)
 
-    def one_window(last_motion, start, size, audio_features=None):
+    def one_window(step, last_motion, start, size, audio_features=None):
         wmask = mask[:, start:start + size]
         seed = torch.where(wmask[:, :pre] == 0, masked_motion[:, start:start + pre], last_motion)
         wmotion = torch.cat([seed, masked_motion[:, start + pre:start + size]], dim=1)
         wmask = torch.cat([torch.zeros_like(wmask[:, :pre]), wmask[:, pre:]], dim=1)
         audio_slice = audio[:, start * SAMPLES_PER_FRAME:(start + size) * SAMPLES_PER_FRAME]
-        return _window_step(model, suite, audio_slice, speaker_id, wmotion, wmask,
-                            audio_features)
+        return step(model, suite, audio_slice, speaker_id, wmotion, wmask, audio_features)
 
-    pieces = []
+    total = rounds * stride + (pre + remain if remain > pre else 0)
+    out = None
     last_motion = masked_motion[:, :pre]
     for i in range(rounds):
-        net_out, last_motion = one_window(last_motion, i * stride, window,
+        net_out, last_motion = one_window(full_window_step, last_motion, i * stride, window,
                                           None if feats is None else feats[i])
-        pieces.append({k: v[:, :-pre] for k, v in net_out.items()})
+        if out is None:
+            out = {k: v.new_empty((bs, total) + v.shape[2:]) for k, v in net_out.items()}
+        for k, v in net_out.items():
+            out[k][:, i * stride:(i + 1) * stride] = v[:, :stride]
     if remain > pre:
         # the remainder-only case (rounds == 0) seeds from the prepared motion
-        net_out, _ = one_window(last_motion, rounds * stride, pre + remain)
-        pieces.append(net_out)
-    return {k: torch.cat([p[k] for p in pieces], dim=1) for k in pieces[0]}
+        net_out, _ = one_window(_window_step, last_motion, rounds * stride, pre + remain)
+        if out is None:
+            return net_out
+        for k, v in net_out.items():
+            out[k][:, rounds * stride:] = v
+    return out
 
 
 __all__ = [
@@ -295,6 +347,7 @@ __all__ = [
     "batched_audio_features",
     "emage_forward",
     "emage_inference",
+    "graph_window_step",
     "prepare_ar_inputs",
     "use_batched_wav",
 ]

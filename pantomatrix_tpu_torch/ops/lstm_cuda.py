@@ -17,8 +17,9 @@ Each sends CPU tensors to its plain version and CUDA tensors to the kernel; on a
 tensor it launches the kernel or raises. The kernel is a cooperative launch that needs
 all of its CTAs co-resident, one per SM (:func:`plan_layer`), so it wants the whole
 card: where that fails (a card shared under MPS, say) the launch raises. ``launches``
-counts wrapper calls that launched the kernel, one per layer call, so a run can show
-that it went through the kernel.
+counts the kernel's executions on the device, one per layer call, so a run can show
+that it went through the kernel; a launch recorded into a CUDA graph adds to
+``captured`` instead (see ``ops/vq_cuda.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 from . import build
 
 launches = 0
+captured = 0  # launches recorded into CUDA graphs, not executed
 
 THREADS = 256  # threads per CTA (csrc/lstm_sequence.cu)
 TILE_ROWS = (4, 8, 16, 32)  # batch rows per tile the kernel takes
@@ -201,7 +203,7 @@ def _check(x_proj, w_hh, hidden, d):
 
 def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> torch.Tensor:
     """One kernel launch over a layer of ``d`` directions (inputs already checked)."""
-    global launches
+    global launches, captured
     if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError("the LSTM kernel takes contiguous x_proj and w_hh")
     t, b, _ = x_proj.shape
@@ -220,7 +222,10 @@ def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> to
                  stream)
     if err != 0:
         _raise(err, f"lstm_layer launch ({plan})")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 
@@ -247,5 +252,5 @@ def lstm_bidirectional(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) ->
     return _launch(x_proj, w_hh, hidden, 2)
 
 
-__all__ = ["LayerPlan", "launches", "lstm_bidirectional", "lstm_bidirectional_plain",
+__all__ = ["LayerPlan", "captured", "launches", "lstm_bidirectional", "lstm_bidirectional_plain",
            "lstm_direction", "lstm_direction_plain", "plan_layer", "smem_bytes", "k_split"]

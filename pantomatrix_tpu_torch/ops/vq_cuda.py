@@ -10,8 +10,11 @@ tensor to the kernel; on a CUDA tensor it launches the kernel or raises. The ker
 computes the products on the tensor cores in split TF32 (:func:`split_tf32`;
 :func:`nearest_code_split_plain` is its arithmetic in plain PyTorch, for the tests) and
 splits the codes of one 64-row tile across a thread-block cluster (:func:`plan_search`);
-where the cluster cannot be placed, the launch raises. ``launches`` counts kernel
-launches, one per search, so a run can show that it went through the kernel.
+where the cluster cannot be placed, the launch raises. ``launches`` counts the kernel's
+executions on the device, one per search, so a run can show that it went through the
+kernel: a launch recorded into a CUDA graph adds to ``captured`` instead, and whoever
+replays the graph adds its captured launches to ``launches`` per replay
+(``models/emage_graph.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from . import build
 
 launches = 0
+captured = 0  # launches recorded into CUDA graphs, not executed
 
 ROWS_PER_CTA = 64  # one wgmma M (csrc/vq_nearest_code.cu)
 CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs that split one row tile's codes (portable cluster sizes)
@@ -175,7 +179,7 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the current
     stream. Leading dims of z are flattened for the kernel."""
-    global launches
+    global launches, captured
     if z.dtype != torch.float32 or codebook.dtype != torch.float32:
         raise TypeError(f"nearest_code takes float32, got {z.dtype} and {codebook.dtype}")
     if codebook.dim() != 2 or z.dim() < 1 or z.shape[-1] != codebook.shape[1]:
@@ -212,10 +216,13 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if err != 0:
         msg = build.load("vq_nearest_code").vq_error_string(err).decode()
         raise RuntimeError(f"vq_nearest_code launch ({plan}) failed: CUDA error {err} ({msg})")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 
 __all__ = ["CLUSTER_SIZES", "CODE_TILES", "CTA_FIXED_CODES", "ROWS_PER_CTA", "SearchPlan",
-           "launches", "nearest_code", "nearest_code_plain", "nearest_code_split_plain",
+           "captured", "launches", "nearest_code", "nearest_code_plain", "nearest_code_split_plain",
            "plan_search", "smem_bytes", "split_tf32", "stages"]

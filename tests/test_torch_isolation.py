@@ -74,7 +74,9 @@ loaded = [m for m in sys.modules
           or m.startswith(("jax.", "jaxlib.", "pantomatrix_tpu."))]
 print(len(names), "modules")
 for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.disco",
-             "cli.test_emage", "cli.test_camn", "cli.test_disco"):
+             "cli.test_emage", "cli.test_camn", "cli.test_disco", "models.emage_graph",
+             "serve", "serve_http", "cli.serve", "cli.bench_stream", "bench", "entry",
+             "utils.device"):
     assert "pantomatrix_tpu_torch." + want in names, names
 assert not loaded, loaded
 """
