@@ -26,7 +26,8 @@ Phases, each of which raises on failure (nothing is caught):
   7. K2 (the persistent LSTM layer kernel) against its plain PyTorch version on the card,
      for one direction (lstm_direction) and for both directions of a layer in one launch
      (lstm_bidirectional): at the test and edge shapes to atol 1e-5, and at the CaMN/DisCo
-     path shapes (T = 421, B = 8 and 64, H = 512) against a float64 run; two calls must
+     path shapes (T = 421, B = 8 and 64, H = 512) and evaluation's (T = 960, B = 1, H =
+     512: a 64 s take at 15 fps) against a float64 run; two calls must
      be bitwise equal. CUDA-event timings of each layer launch and its us per step (with
      B = 1 as the per-step latency floor), the plain version and, as library yardsticks,
      cuDNN's torch.nn.LSTM(1024, 512) (one direction) and torch.nn.LSTM(1024, 512,
@@ -64,7 +65,22 @@ Phases, each of which raises on failure (nothing is caught):
      audio each, frames as expected and finite, equal to an in-process StreamingPool;
  16. SequenceGenerator for CaMN and DisCo at batch 8 (8 and 4 K2 launches), python -m
      pantomatrix_tpu_torch.bench once (mfu < 1), and entry() at full width. Phases
-     13-16 write outputs/chip_smoke_serving.json.
+     13-16 write outputs/chip_smoke_serving.json;
+ 17. evaluation: a synthetic BEAT2 layout (speaker 2, 4 test takes of 64 s), a synthetic
+     SMPL-X archive at the real archive's shapes (V = 10475, F = 20908, SMPLX_MODEL_PATH),
+     a random AESKConv state dict as emage_evaltools/AESKConv_240_100.bin and full-width
+     checkpoints of EMAGE (with its tokenizers), CaMN and DisCo; python -m
+     pantomatrix_tpu_torch.cli.evaluate five times (emage from --beat2_root, emage
+     --vq_roundtrip, camn, disco, and disco without the AESKConv file), each metrics.json
+     with the JAX CLI's keys, finite, fgd_embedder "aeskconv" / "stats"; then in process,
+     per 64 s take: CaMN 8 and DisCo 4 K2 launches, each family's motion against the
+     same take through the same checkpoint on the CPU (plain K2) to 2e-3, EMAGE 33 K1
+     launches (phase 3 holds K1 at their shapes, N = 64, 60 and 1920), the VQ round
+     trip 4 K1 launches whose indices equal map2index's and whose motion matches the CPU
+     (plain K1) to 2e-3 on rotations and 1e-4 on expressions and translation; generate
+     seconds (first and warm), FK seconds and peak memory at V = 10475, and
+     evaluate_clips on the card against the CPU (FGD, L1div, LVD, MSE within 1e-4
+     relative, BC equal). It writes outputs/chip_smoke_eval.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -97,14 +113,18 @@ K1_SHAPES = [
     (8 * 64, 256, 256), (8 * 60, 256, 256), (8 * 600, 256, 256),
     # ... and batch 128 x 60 s, whose final decode is the headline shape
     (128 * 64, 256, 256), (128 * 60, 256, 256), (128 * 1800, 256, 256),
+    # evaluation at batch 1: the AR window and remainder window of a take, and the VQ
+    # round trip and final decode of a 64 s take
+    (64, 256, 256), (60, 256, 256), (1920, 256, 256),
 ]
 K1_HEADLINE = (128 * 1800, 256, 256)
 # (T, B, H): the K2 tests' shapes and edge shapes of the launch plan (one row, ragged
 # batch groups, more rows than one pass of the grid), then CaMN/DisCo's at 28.4 s (421
-# frames at 15 fps), and B = 1 for the per-step latency floor
+# frames at 15 fps) and evaluation's 64 s take at batch 1 (960 frames), and B = 1 for the
+# per-step latency floor
 K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
                   (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512)]
-K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512)]
+K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512), (960, 1, 512)]
 K2_FLOOR_SHAPE = (421, 1, 512)
 K2_HEADLINE = (421, 64, 512)
 K2_ATOL = 1e-5
@@ -1194,6 +1214,324 @@ def phase_rest(card):
     return result
 
 
+PARTS = ("face", "upper", "hands", "lower")
+EVAL_TAKES = 4
+EVAL_SECONDS = 64
+EVAL_FRAMES = EVAL_SECONDS * 30
+SMPLX_V, SMPLX_F = 10475, 20908  # the real SMPLX_NEUTRAL_2020.npz's vertex and face counts
+EVAL_METRIC_RTOL = 1e-4
+EVAL_EXPR_ATOL = 1e-4
+
+
+def write_eval_data(root: Path) -> dict:
+    """Everything phase 17 reads, from numpy and torch seeds: a BEAT2 layout (speaker 2,
+    EVAL_TAKES test takes of EVAL_SECONDS s), a synthetic SMPL-X archive at the real
+    archive's shapes, a random AESKConv state dict as emage_evaltools/AESKConv_240_100.bin
+    under a working directory, and full-width checkpoints of the three families."""
+    from pantomatrix_tpu_torch.cli.test_emage import load_models
+    from pantomatrix_tpu_torch.data.preprocess import build_clip_index
+    from pantomatrix_tpu_torch.eval.fgd_encoder import SMPLX_PARENTS, AESKConv
+    from pantomatrix_tpu_torch.io.hf_checkpoint import save_checkpoint
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+
+    rng = np.random.RandomState(17)
+    beat2 = root / "beat2"
+    for sub in ("smplxflame_30", "footcontact", "wave16k"):
+        (beat2 / sub).mkdir(parents=True)
+    rows = ["id,type"]
+    for i in range(EVAL_TAKES):
+        vid = f"2_scott_0_{i + 1}_{i + 1}"
+        t = EVAL_FRAMES
+        poses = np.cumsum(rng.normal(0, 0.02, (t, 165)), axis=0) + rng.uniform(-0.3, 0.3, 165)
+        np.savez(beat2 / "smplxflame_30" / f"{vid}.npz",
+                 betas=rng.normal(0, 1, 300).astype(np.float32), poses=poses.astype(np.float32),
+                 expressions=rng.normal(0, 0.5, (t, 100)).astype(np.float32),
+                 trans=np.cumsum(rng.normal(0, 0.01, (t, 3)), axis=0).astype(np.float32),
+                 model="smplx2020", gender="neutral", mocap_frame_rate=30)
+        np.save(beat2 / "footcontact" / f"{vid}.npy",
+                (rng.uniform(size=(t, 4)) < 0.5).astype(np.float32))
+        n = EVAL_SECONDS * 16000
+        x = rng.normal(0, 0.01, n)  # noise bursts on a quiet floor: onsets for BC
+        for start in rng.randint(0, n - 1600, n // 6000):
+            x[start:start + 1600] += rng.normal(0, 0.3, 1600) * np.hanning(1600)
+        with wave.open(str(beat2 / "wave16k" / f"{vid}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+        rows.append(f"{vid},test")
+    (beat2 / "train_test_split.csv").write_text("\n".join(rows) + "\n")
+
+    v, f = SMPLX_V, SMPLX_F
+    kintree = np.zeros((2, 55), np.int64)
+    kintree[0] = [2**32 - 1] + list(SMPLX_PARENTS[1:])
+    kintree[1] = np.arange(55)
+    jreg = np.abs(rng.normal(0, 1, (55, v))).astype(np.float32)
+    weights = np.abs(rng.normal(0, 1, (v, 55))).astype(np.float32)
+    bary = rng.uniform(0.1, 1, (51, 3))
+    archive = root / "SMPLX_NEUTRAL_2020.npz"
+    np.savez(archive, v_template=rng.normal(0, 0.3, (v, 3)).astype(np.float32),
+             shapedirs=rng.normal(0, 0.01, (v, 3, 400)).astype(np.float32),
+             posedirs=rng.normal(0, 0.01, (v, 3, 486)).astype(np.float32),
+             J_regressor=jreg / jreg.sum(1, keepdims=True), kintree_table=kintree,
+             weights=weights / weights.sum(1, keepdims=True),
+             hands_meanl=rng.normal(0, 0.1, 45).astype(np.float32),
+             hands_meanr=rng.normal(0, 0.1, 45).astype(np.float32),
+             f=rng.randint(0, v, (f, 3)).astype(np.int64),
+             lmk_faces_idx=rng.randint(0, f, 51).astype(np.int64),
+             lmk_bary_coords=(bary / bary.sum(1, keepdims=True)).astype(np.float32))
+
+    work = root / "work"
+    (work / "emage_evaltools").mkdir(parents=True)
+    enc = AESKConv(generator=torch.Generator().manual_seed(17))
+    torch.save({f"encoder.{k}": t for k, t in enc.state_dict().items()},
+               work / "emage_evaltools" / "AESKConv_240_100.bin")
+    (root / "work_without_fgd").mkdir()
+
+    ckpt = {"emage": root / "emage", "camn": root / "camn", "disco": root / "disco"}
+    model, vq = load_models(None, True, "cuda")
+    model.save_pretrained(str(ckpt["emage"]))
+    for part, name in (("face", "face"), ("upper", "upper"), ("hands", "hands"),
+                       ("lower", "lower"), ("global_motion", "global")):
+        module = getattr(vq, part)
+        save_checkpoint(str(ckpt["emage"] / "emage_vq" / name), module.state_dict(),
+                        module.config)
+    del model, vq
+    CamnAudioModel(CamnAudioConfig(), seed=3, device="cuda").save_pretrained(str(ckpt["camn"]))
+    DiscoAudioModel(DiscoAudioConfig(), seed=3, device="cuda").save_pretrained(
+        str(ckpt["disco"]))
+    torch.cuda.empty_cache()
+    meta = build_clip_index(str(beat2), str(root / "index"))
+    return {"beat2": beat2, "archive": archive, "work": work,
+            "work_without_fgd": root / "work_without_fgd", "ckpt": ckpt, "meta": meta}
+
+
+def run_evaluate_cli(data: dict, family: str, flags, out: Path, with_fgd: bool = True) -> dict:
+    """``python -m pantomatrix_tpu_torch.cli.evaluate`` on the card; its metrics.json."""
+    import os
+
+    env = dict(os.environ, SMPLX_MODEL_PATH=str(data["archive"]),
+               PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "pantomatrix_tpu_torch.cli.evaluate", "--family", family,
+           "--model_path", str(data["ckpt"][family]), "--save_folder", str(out),
+           "--device", "cuda", *flags]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=str(data["work"] if with_fgd else data["work_without_fgd"]),
+                       env=env, capture_output=True, text=True, timeout=900)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"evaluate {family} {flags} failed ({r.returncode}):\n"
+                           f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    metrics = json.loads((out / "metrics.json").read_text())
+    want = {"fgd", "fgd_embedder", "bc", "l1"} | ({"lvd", "mse"} if family == "emage" else set())
+    finite = all(np.isfinite(metrics[k]) for k in want if k != "fgd_embedder")
+    embedder = "aeskconv" if with_fgd else "stats"
+    if set(metrics) != want or not finite or metrics["fgd_embedder"] != embedder:
+        raise AssertionError(f"evaluate {family} {flags}: metrics {metrics}; want keys "
+                             f"{sorted(want)}, finite values, fgd_embedder {embedder}")
+    cost = next((line for line in r.stdout.splitlines() if line.startswith("cost ")), "")
+    log(f"CLI evaluate --family {family} {' '.join(flags)} ({embedder}): {wall:.1f} s wall; "
+        f"{cost}; {json.dumps(metrics)}")
+    return {"family": family, "flags": list(flags), "wall_s": wall, "cost_line": cost,
+            "metrics": metrics}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def metrics_agree(got: dict, want: dict) -> dict:
+    """Card against CPU: FGD, L1div, LVD, MSE within EVAL_METRIC_RTOL, BC equal."""
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in ("fgd", "l1", "lvd", "mse")}
+    if (set(got) != set(want) or got["bc"] != want["bc"] or max(rel.values()) > EVAL_METRIC_RTOL
+            or got["fgd_embedder"] != want["fgd_embedder"]):
+        raise AssertionError(f"evaluate_clips card {got} against CPU {want}: rel {rel}")
+    return rel
+
+
+def phase_eval(card):
+    """17. Evaluation: the CLI five times, then the generate functions with the kernels
+    counted, and evaluate_clips on the card against the CPU."""
+    from pantomatrix_tpu_torch.core.motion_rep import get_motion_rep
+    from pantomatrix_tpu_torch.core.rotations import axis_angle_to_rotation_6d
+    from pantomatrix_tpu_torch.core.smplx import load_smplx
+    from pantomatrix_tpu_torch.data.audio import load_audio
+    from pantomatrix_tpu_torch.eval import test_flow
+    from pantomatrix_tpu_torch.eval.pipeline import evaluate_clips
+    from pantomatrix_tpu_torch.models.api import AutoModel, EmageVQModel
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+
+    result = {"card": card, "takes": EVAL_TAKES, "seconds": EVAL_SECONDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        data = write_eval_data(root)
+        result["setup_s"] = time.time() - t0
+        log(f"evaluation: {EVAL_TAKES} takes x {EVAL_SECONDS} s, SMPL-X archive V = {SMPLX_V}, "
+            f"F = {SMPLX_F}, checkpoints written in {result['setup_s']:.1f} s")
+        meta = ["--meta", data["meta"]]
+        root_flags = ["--beat2_root", str(data["beat2"])]
+        result["cli"] = [
+            run_evaluate_cli(data, "emage", root_flags, root / "out_emage"),
+            run_evaluate_cli(data, "emage", root_flags + ["--vq_roundtrip"], root / "out_rt"),
+            run_evaluate_cli(data, "camn", meta, root / "out_camn"),
+            run_evaluate_cli(data, "disco", meta, root / "out_disco"),
+            run_evaluate_cli(data, "disco", meta, root / "out_stats", with_fgd=False),
+        ]
+
+        test_list = test_flow.unique_test_clips([data["meta"]])
+        wave0, wave1 = (torch.from_numpy(load_audio(m["audio_path"]))[None]
+                        for m in test_list[:2])
+        spk = torch.zeros((1, 1), dtype=torch.long)
+        gen_s, launches, seq_err = {}, {}, {}
+        for family, make, want in (("camn", test_flow.make_camn_generate, 8),
+                                   ("disco", test_flow.make_disco_generate, 4)):
+            gen = make(AutoModel.from_pretrained(str(data["ckpt"][family]), device="cuda"))
+            _, first = timed(lambda: gen(wave0, spk))
+            vq_cuda.launches = lstm_cuda.launches = 0
+            out, warm = timed(lambda: gen(wave1, spk))
+            launches[family] = lstm_cuda.launches
+            if lstm_cuda.launches != want or vq_cuda.launches != 0 or \
+                    not np.isfinite(out["motion"]).all():
+                raise AssertionError(f"{family} generate: K2 {lstm_cuda.launches} launches "
+                                     f"(want {want}), K1 {vq_cuda.launches}")
+            gen_s[family] = {"first": first, "warm": warm}
+            # the same take through the same checkpoint on the CPU, where K2 is its plain
+            # version
+            cpu_out = make(AutoModel.from_pretrained(str(data["ckpt"][family]),
+                                                     device="cpu"))(wave1, spk)
+            seq_err[family] = float(np.abs(out["motion"] - cpu_out["motion"]).max())
+            if out["motion"].shape != cpu_out["motion"].shape or \
+                    not seq_err[family] <= PARITY_ROT_ATOL:
+                raise AssertionError(f"{family} generate on the card against the CPU: "
+                                     f"{out['motion'].shape} vs {cpu_out['motion'].shape}, "
+                                     f"max abs err {seq_err[family]} > {PARITY_ROT_ATOL}")
+
+        model = AutoModel.from_pretrained(str(data["ckpt"]["emage"]), device="cuda")
+        vq = EmageVQModel.from_pretrained(str(data["ckpt"]["emage"]), "cuda")
+        gen = test_flow.make_emage_generate(model, vq)
+        _, first = timed(lambda: gen(wave0, spk))  # captures the window step's graph
+        vq_cuda.launches = 0
+        out, warm = timed(lambda: gen(wave1, spk))
+        rounds = (EVAL_FRAMES - 4) // 60
+        launches["emage"] = vq_cuda.launches
+        if vq_cuda.launches != rounds + 2 or not np.isfinite(out["motion"]).all():
+            raise AssertionError(f"emage generate: K1 {vq_cuda.launches} launches, want "
+                                 f"{rounds + 2}")
+        gen_s["emage"] = {"first": first, "warm": warm}
+
+        # the VQ round trip: the latents are codebook rows, so K1 finds map2index's codes
+        rt = test_flow.make_emage_vq_roundtrip_generate(vq)
+        _, first = timed(lambda: rt(None, None, meta=test_list[0]))
+        vq_cpu = EmageVQModel.from_pretrained(str(data["ckpt"]["emage"]), "cpu")
+        motion_path = test_list[1]["motion_path"]
+        with np.load(motion_path) as d:
+            poses, expr, trans = (torch.from_numpy(d[k])[None]
+                                  for k in ("poses", "expressions", "trans"))
+        contact = torch.from_numpy(np.load(motion_path.replace("smplxflame_30", "footcontact")
+                                           .replace(".npz", ".npy")))[None]
+        rot6d = axis_angle_to_rotation_6d(poses.reshape(1, -1, 55, 3)).reshape(1, -1, 330)
+        args = [x.cuda() for x in (rot6d, expr, contact, trans)]
+        idx, lat = vq.map2index(*args), vq.map2latent(*args)
+        idx_cpu = vq_cpu.map2index(*[x.cpu() for x in args])
+        near_ties = {}
+        for part in PARTS:
+            codebook = getattr(vq, part).quantizer.embedding.weight
+            k1 = vq_cuda.nearest_code(lat[part].contiguous(), codebook)
+            if not torch.equal(k1, idx[part]):
+                raise AssertionError(f"round trip {part}: K1 indices differ from map2index's "
+                                     f"in {int((k1 != idx[part]).sum())} of {k1.numel()} rows")
+            # map2index on the card against on the CPU: the encoders' float32 rounding
+            # differs, so rows may differ where two codes are near-tied for the card's
+            # encoder output (float64 distances within 1e-5 relative)
+            differ = (idx[part].cpu() != idx_cpu[part]).reshape(-1)
+            if bool(differ.any()):
+                with torch.no_grad(), strict_fp32():
+                    z = getattr(vq, part).encoder(vq.spilt_inputs(*args)[part])
+                z = z.reshape(-1, codebook.shape[1])[differ.cuda()].double()
+                cb = codebook.detach().double()
+                d_card = ((z - cb[idx[part].reshape(-1)[differ.cuda()].long()]) ** 2).sum(-1)
+                d_cpu = ((z - cb[idx_cpu[part].reshape(-1)[differ].long().cuda()]) ** 2).sum(-1)
+                gap = ((d_card - d_cpu).abs() / d_card.abs().clamp_min(1e-30)).cpu()
+                near_ties[part] = {"rows": int(differ.sum()),
+                                   "frames": torch.nonzero(differ).reshape(-1).tolist()[:8],
+                                   "max_rel_gap": float(gap.max())}
+                if float(gap.max()) >= 1e-5:
+                    raise AssertionError(f"round trip {part}: map2index on the card and on "
+                                         f"the CPU differ beyond near-ties: {near_ties[part]}")
+        vq_cuda.launches = lstm_cuda.launches = 0
+        got, warm = timed(lambda: rt(None, None, meta=test_list[1]))
+        launches["vq_roundtrip"] = vq_cuda.launches
+        if vq_cuda.launches != 4:
+            raise AssertionError(f"round trip: K1 launched {vq_cuda.launches} times, want 4")
+        gen_s["vq_roundtrip"] = {"first": first, "warm": warm}
+        # the card's latents decoded on the CPU, where K1 is its plain version
+        dec = vq_cpu.decode(**{f"{p}_latent": lat[p].cpu() for p in PARTS},
+                            get_global_motion=True, ref_trans=trans[:, :1])
+        t = rot6d.shape[1]
+        want = {"motion": dec["motion_axis_angle"].reshape(t, -1).numpy(),
+                "expressions": dec["expression"].reshape(t, -1).numpy(),
+                "trans": dec["trans"].reshape(t, -1).numpy()}
+        rt_err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        if not (rt_err["motion"] <= PARITY_ROT_ATOL and rt_err["expressions"] <= EVAL_EXPR_ATOL
+                and rt_err["trans"] <= EVAL_EXPR_ATOL):
+            raise AssertionError(f"round trip on the card against the CPU: {rt_err}")
+        del model, vq, vq_cpu, gen, rt
+        torch.cuda.empty_cache()
+        log(f"evaluation generate, s per {EVAL_SECONDS} s take (first, warm): {gen_s}; kernel "
+            f"launches per warm take: {launches}; CaMN/DisCo card vs CPU (plain K2) max abs "
+            f"err {seq_err}; round trip: K1 indices equal to map2index's "
+            f"in all four parts; the card's latents decoded on the CPU (plain K1), max abs err "
+            f"{rt_err}; map2index card vs CPU near-ties {near_ties} | {card}")
+
+        # the FK at V = 10475, then evaluate_clips on the card against the CPU over the
+        # EMAGE CLI's saved takes
+        smplx_gpu = load_smplx(str(data["archive"]), "cuda")
+        pred = [{"video_id": m["video_id"],
+                 "motion_path": str(root / "out_emage" / f"{m['video_id']}_output.npz")}
+                for m in test_list]
+        with np.load(pred[0]["motion_path"]) as d:
+            motion, pexpr = d["poses"], d["expressions"]
+        with np.load(test_list[0]["motion_path"]) as d:
+            betas = d["betas"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fk = lambda: (get_motion_rep(smplx_gpu, motion, 30, betas=betas),
+                      get_motion_rep(smplx_gpu, motion, 30, betas=betas, expressions=pexpr,
+                                     expression_only=True))
+        timed(fk)
+        fk_out, fk_s = timed(fk)
+        fk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        kw = dict(pose_fps=30, with_face=True,
+                  download_path=str(data["work"] / "emage_evaltools"))
+        got, metric_s = timed(lambda: evaluate_clips(test_list, pred, smplx_gpu,
+                                                     device="cuda", **kw))
+        t0 = time.time()
+        want = evaluate_clips(test_list, pred, load_smplx(str(data["archive"]), "cpu"),
+                              device="cpu", **kw)
+        cpu_s = time.time() - t0
+        rel = metrics_agree(got, want)
+        log(f"evaluation FK at V = {SMPLX_V}, T = {EVAL_FRAMES}: body joints + face vertices "
+            f"{fk_s:.3f} s a take, peak {fk_peak:.2f} GB above the resident; evaluate_clips "
+            f"over {EVAL_TAKES} takes {metric_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; "
+            f"card vs CPU rel err {rel}, BC equal ({got['bc']}) | {card}")
+        if fk_out[1]["vertices"].shape != (EVAL_FRAMES, SMPLX_V * 3):
+            raise AssertionError(f"face vertices {fk_out[1]['vertices'].shape}")
+    result.update(generate_s=gen_s, launches_per_take=launches, seq_generate_max_abs_err=seq_err,
+                  roundtrip_max_abs_err=rt_err,
+                  map2index_near_ties=near_ties,
+                  fk_s_per_take=fk_s, fk_peak_gb=fk_peak, metrics_card_s=metric_s,
+                  metrics_cpu_s=cpu_s, metrics_card=got, metrics_cpu=want, metrics_rel_err=rel)
+    return result
+
+
 def main():
     t_all = time.time()
     # 1. device
@@ -1245,6 +1583,9 @@ def main():
     # 16. SequenceGenerator, the benchmark script, entry()
     serving["rest"] = phase_rest(card)
     (out_dir / "chip_smoke_serving.json").write_text(json.dumps(serving, indent=1))
+    # 17. evaluation (counts K1 and K2 launches on its own paths)
+    evaluation = phase_eval(card)
+    (out_dir / "chip_smoke_eval.json").write_text(json.dumps(evaluation, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     kernels = [{
@@ -1267,6 +1608,9 @@ def main():
         "by_shape": k1_rows,
         "launches_bf16": {f"emage {r['mode']} {r['batch']} x {r['seconds']} s": r["k1_launches"]
                           for r in bf16["emage_runs"] if r["mode"] != "fp32"},
+        "launches_evaluation": {
+            f"{k} per {EVAL_SECONDS} s take": evaluation["launches_per_take"][k]
+            for k in ("emage", "vq_roundtrip")},
     }]
     head = next(r for r in k2_rows
                 if tuple(r["shape"]) == K2_HEADLINE and r["directions"] == 2)
@@ -1289,6 +1633,9 @@ def main():
         "by_shape": k2_rows,
         "launches_bf16": {f"{r['model']} {r['batch']} x {LSTM_SECONDS} s": r["k2_launches"]
                           for r in bf16["lstm_runs"]},
+        "launches_evaluation": {
+            f"{k} per {EVAL_SECONDS} s take": evaluation["launches_per_take"][k]
+            for k in ("camn", "disco")},
     })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

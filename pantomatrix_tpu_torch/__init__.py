@@ -4,16 +4,20 @@ The JAX package ``pantomatrix_tpu`` is the reference this package is held agains
 this package imports nothing of it (nor JAX). Each module mirrors its JAX
 counterpart's path and names:
 
-- ``core``    rotation math, joint masking, velocity integration, the SMPL-X rest pose
+- ``core``    rotation math, joint masking, velocity integration, SMPL-X forward
+              kinematics and the motion representations built on it
 - ``nn``      layers, conv blocks, post-norm transformers, VQ lookup, the LSTM
 - ``ops``     hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions
 - ``models``  EMAGE audio model and VQ tokenizer suite, CaMN, DisCo, the
               ``from_pretrained`` API and ``AutoModel``
 - ``utils``   the low-precision serving mode's parameter cast
 - ``io``      checkpoint and BEAT-format npz IO
-- ``data``    WAV and MP3 decode and resampling
+- ``data``    WAV and MP3 decode and resampling, the BEAT2 clip index
+- ``eval``    the evaluation metrics (FGD with its AESKConv encoder, BC, L1div, LVD,
+              MSE), the metric pipeline and the test-set pass
 - ``native``  the libmpg123 MP3 binding
-- ``cli``     ``test_emage``, ``test_camn`` and ``test_disco`` inference CLIs
+- ``cli``     ``test_emage``, ``test_camn`` and ``test_disco`` inference CLIs, the
+              serving daemon and its load generator, and ``evaluate``
 
 Parameters live in ``nn.Module`` trees whose ``state_dict`` paths equal the JAX
 param-tree paths, so ``convert.py`` carries weights across with a strict load.

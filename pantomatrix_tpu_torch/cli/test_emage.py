@@ -40,18 +40,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_models(model_path, random_init: bool, device):
-    from ..models.api import EmageAudioModel, EmageVAEConv, EmageVQModel, EmageVQVAEConv
+    from ..models.api import EmageAudioModel, EmageVQModel
     from ..models.configs import EmageAudioConfig
 
     if model_path:
-        sub = lambda name: os.path.join(model_path, "emage_vq", name)
-        vq = EmageVQModel(
-            face=EmageVQVAEConv.from_pretrained(sub("face"), device=device),
-            upper=EmageVQVAEConv.from_pretrained(sub("upper"), device=device),
-            hands=EmageVQVAEConv.from_pretrained(sub("hands"), device=device),
-            lower=EmageVQVAEConv.from_pretrained(sub("lower"), device=device),
-            global_motion=EmageVAEConv.from_pretrained(sub("global"), device=device),
-        )
+        vq = EmageVQModel.from_pretrained(model_path, device=device)
         return EmageAudioModel.from_pretrained(model_path, device=device), vq
     if random_init:
         vq = EmageVQModel.random(seed=0, device=device)

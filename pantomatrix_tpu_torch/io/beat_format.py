@@ -1,15 +1,16 @@
-"""BEAT-format motion npz save and linear time upsampling (counterpart of
+"""BEAT-format motion npz save and load, and linear time upsampling (counterpart of
 ``pantomatrix_tpu/io/beat_format.py``), with the ground-offset translation from the
 SMPL-X rest pose when no translation is given."""
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..core.masking import recover_from_mask
+from ..core.masking import recover_from_mask, select_with_mask
 
 
 def time_upsample(data: np.ndarray, k: int) -> np.ndarray:
@@ -27,15 +28,25 @@ def time_upsample(data: np.ndarray, k: int) -> np.ndarray:
     return out.reshape(shape[:-2] + (k * t, c))
 
 
+@functools.lru_cache(maxsize=1)
+def _rest_model(path: str, mtime_ns: int):
+    """The SMPL-X archive on the CPU, read once per process (and again if the file
+    changes): every save without a translation needs it."""
+    from ..core.smplx import load_smplx
+
+    return load_smplx(path, "cpu")
+
+
 def _ground_offset_trans(n_frames: int, betas: np.ndarray, dtype) -> Optional[np.ndarray]:
     """The translation that puts the rest-pose feet on the ground, -(ankle_L +
     ankle_R) / 2 (joints 10 and 11), for every frame; None without an SMPL-X archive."""
-    from ..core.smplx import default_model_path, load_smplx_rest, rest_pose_joints
+    from ..core.smplx import default_model_path, rest_pose_joints
 
     model_path = default_model_path()
     if model_path is None or not os.path.exists(model_path):
         return None
-    joints = rest_pose_joints(load_smplx_rest(model_path), betas[:300]).numpy()
+    model = _rest_model(os.path.abspath(model_path), os.stat(model_path).st_mtime_ns)
+    joints = rest_pose_joints(model, betas[:300]).numpy()
     trans = -(joints[10] + joints[11]) / 2.0
     return np.repeat(trans[None, :], n_frames, axis=0).astype(dtype)
 
@@ -86,4 +97,15 @@ def beat_format_save(
     )
 
 
-__all__ = ["beat_format_save", "time_upsample"]
+def beat_format_load(load_path: str, mask: Optional[Sequence[bool]] = None) -> dict:
+    """A BEAT-format npz's poses (the joints ``mask`` selects, when given), betas,
+    expressions and trans, as numpy arrays."""
+    with np.load(load_path, allow_pickle=True) as data:
+        poses = data["poses"]
+        if mask is not None:
+            poses = select_with_mask(torch.from_numpy(poses), mask).numpy()
+        return {"poses": poses, "betas": data["betas"], "expressions": data["expressions"],
+                "trans": data["trans"]}
+
+
+__all__ = ["beat_format_load", "beat_format_save", "time_upsample"]

@@ -8,6 +8,7 @@ init draws from a CPU ``torch.Generator`` seeded with ``seed``, then moves to th
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Type
 
 import torch
@@ -31,8 +32,14 @@ from .emage_vq import (
     EmageVQVAE,
     init_vq_suite,
     vq_decode,
+    vq_get_global_motion,
+    vq_map2index,
+    vq_map2latent,
+    vq_split_inputs,
     vqvae_decode_index,
     vqvae_decode_latent,
+    vqvae_map2index,
+    vqvae_map2latent,
 )
 
 
@@ -85,7 +92,16 @@ class DiscoAudioModel(PretrainedModel, DiscoAudio):
 
 
 class EmageVQVAEConv(PretrainedModel, EmageVQVAE):
+    """``model(inputs)`` runs ``vqvae_forward`` (loss, straight-through latent,
+    perplexity, reconstruction, indices, pre-quantization latent)."""
+
     config_class = EmageVQVAEConvConfig
+
+    def map2index(self, inputs):
+        return vqvae_map2index(self, inputs)
+
+    def map2latent(self, inputs):
+        return vqvae_map2latent(self, inputs)
 
     def decode(self, index):
         return vqvae_decode_index(self, index)
@@ -95,11 +111,14 @@ class EmageVQVAEConv(PretrainedModel, EmageVQVAE):
 
 
 class EmageVAEConv(PretrainedModel, EmageVAE):
+    """``model(inputs)`` runs ``vae_forward`` (the reconstruction)."""
+
     config_class = EmageVAEConvConfig
 
 
 class EmageVQModel(EmageVQSuite):
-    """The five tokenizers composed for decoding."""
+    """The five tokenizers composed: the part split, encoding to codes or latents,
+    decoding, and the global translation."""
 
     @classmethod
     def random(cls, seed: int = 0, device="cuda") -> "EmageVQModel":
@@ -108,8 +127,34 @@ class EmageVQModel(EmageVQSuite):
         suite = init_vq_suite(torch.Generator().manual_seed(seed))
         return cls(**dict(suite.named_children())).to(dev)
 
+    @classmethod
+    def from_pretrained(cls, root: str, device="cuda") -> "EmageVQModel":
+        """The five tokenizers of the checkpoint root ``root``:
+        ``emage_vq/{face,upper,hands,lower,global}``."""
+        sub = lambda name: os.path.join(root, "emage_vq", name)
+        return cls(
+            face=EmageVQVAEConv.from_pretrained(sub("face"), device=device),
+            upper=EmageVQVAEConv.from_pretrained(sub("upper"), device=device),
+            hands=EmageVQVAEConv.from_pretrained(sub("hands"), device=device),
+            lower=EmageVQVAEConv.from_pretrained(sub("lower"), device=device),
+            global_motion=EmageVAEConv.from_pretrained(sub("global"), device=device),
+        )
+
+    def spilt_inputs(self, rot6d, expression, tar_contact=None, tar_trans=None):
+        # (sic) the reference's spelling
+        return vq_split_inputs(rot6d, expression, tar_contact, tar_trans)
+
+    def map2index(self, rot6d, expression, tar_contact=None, tar_trans=None):
+        return vq_map2index(self, rot6d, expression, tar_contact, tar_trans)
+
+    def map2latent(self, rot6d, expression, tar_contact=None, tar_trans=None):
+        return vq_map2latent(self, rot6d, expression, tar_contact, tar_trans)
+
     def decode(self, **kwargs):
         return vq_decode(self, **kwargs)
+
+    def get_global_motion(self, lower_body, ref_trans):
+        return vq_get_global_motion(self, lower_body, ref_trans)
 
 
 class EmageAudioModel(PretrainedModel, EmageAudio):

@@ -86,8 +86,9 @@ class EmageAudio(nn.Module):
         self.face_out_proj = Linear(h, cb, generator=g)
         self.face_cls = MLP(cb, h, cb, generator=g)
 
-    def forward(self, audio, speaker_id, masked_motion, mask):
-        return emage_forward(self, audio, speaker_id, masked_motion, mask)
+    def forward(self, audio, speaker_id, masked_motion, mask, use_audio: bool = True):
+        return emage_forward(self, audio, speaker_id, masked_motion, mask,
+                             use_audio=use_audio)
 
 
 @torch.no_grad()
@@ -95,13 +96,15 @@ class EmageAudio(nn.Module):
 def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
                   masked_motion: torch.Tensor, mask: torch.Tensor,
                   audio_features: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  ) -> Dict[str, torch.Tensor]:
+                  use_audio: bool = True) -> Dict[str, torch.Tensor]:
     """One masked-transformer pass over a (bs, t, 337) window with its audio
     (bs, t * 533). Returns per-part latents ``rec_*`` and codebook logits ``cls_*``,
     in the dtype of the model's weights.
 
     ``audio_features``: the window's precomputed (face, body) WavEncoder outputs, in
-    place of running the encoders on ``audio``."""
+    place of running the encoders on ``audio``. ``use_audio=False`` is the reference's
+    no-audio pass: it multiplies the 8-layer cross-attention stack's output by zero, so
+    the stack is skipped here, as in the JAX package."""
     h = model.config.hidden_size
     pe = model.position_embeddings.pe
 
@@ -137,9 +140,10 @@ def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tens
     # body: self-attention, then the 8-layer cross-attention into the audio
     motion_proj = spk_body + periodic_positional_encoding(pe, model.moton_proj(body_hint_body))
     motion_fea = model.motion_self_encoder(motion_proj)
-    audio2body_proj = model.audio_body_motion_proj(audio2body_fea)
     motion_fea = periodic_positional_encoding(pe, motion_fea + spk_body)
-    motion_fea = motion_fea + model.audio_motion_cross_attn(motion_fea, audio2body_proj)
+    if use_audio:
+        audio2body_proj = model.audio_body_motion_proj(audio2body_fea)
+        motion_fea = motion_fea + model.audio_motion_cross_attn(motion_fea, audio2body_proj)
 
     # per-part branches; each refiner attends over the sum of the other two parts,
     # summed pairwise in the reference's order

@@ -4,11 +4,16 @@ the per-part conv VQ-VAEs, the global-translation VAE, and the composite decode.
 Part widths: face 6+100 = 106, upper 13x6 = 78, hands 30x6 = 180, lower 9x6+3+4 = 61.
 Face is decoded from its continuous latent by default, which re-quantizes it through
 the VQ nearest-code kernel (``ops/vq_cuda.py``); the other parts decode from indices.
+
+The encode side (``vqvae_forward``, the ``map2index`` / ``map2latent`` functions, which
+evaluation's VQ round trip and training call) searches with the expanded distance of
+``nn/vq.py``, as the JAX package's XLA search does, not with the kernel.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,7 +27,7 @@ from ..core.masking import (
 from ..core.rotations import axis_angle_to_rotation_6d, rotation_6d_to_axis_angle
 from ..nn.blocks import VQDecoder, VQEncoder
 from ..nn.layers import strict_fp32
-from ..nn.vq import Quantizer, get_codebook_entry
+from ..nn.vq import Quantizer, get_codebook_entry, map2index, quantize
 from ..ops.vq_cuda import nearest_code
 from .configs import EmageVAEConvConfig, EmageVQVAEConvConfig
 
@@ -38,6 +43,9 @@ class EmageVAE(nn.Module):
         self.decoder = VQDecoder(cfg.vae_test_dim, cfg.vae_length, cfg.vae_layer,
                                  generator=generator)
 
+    def forward(self, inputs):
+        return vae_forward(self, inputs)
+
 
 class EmageVQVAE(nn.Module):
     """Encoder -> quantizer -> decoder; keys encoder, quantizer, decoder."""
@@ -51,9 +59,43 @@ class EmageVQVAE(nn.Module):
         self.decoder = VQDecoder(cfg.vae_test_dim, cfg.vae_length, cfg.vae_layer,
                                  generator=generator)
 
+    def forward(self, inputs):
+        return vqvae_forward(self, inputs)
 
+
+@strict_fp32()
 def vae_forward(m: EmageVAE, x: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"rec_pose": m.decoder(m.encoder(x))}
+
+
+@strict_fp32()
+def vqvae_forward(m: EmageVQVAE, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Encoder -> quantizer (straight-through) -> decoder, with the reference's keys
+    and two more for codebook health: the ``indices`` and the encoder's ``pre_latent``."""
+    pre_latent = m.encoder(x)
+    loss, z_q, idx, perplexity = quantize(m.quantizer, pre_latent,
+                                          m.config.vae_quantizer_lambda)
+    return {
+        "poses_feat": z_q,
+        "embedding_loss": loss,
+        "perplexity": perplexity,
+        "rec_pose": m.decoder(z_q),
+        "indices": idx,
+        "pre_latent": pre_latent,
+    }
+
+
+@torch.no_grad()
+@strict_fp32()
+def vqvae_map2index(m: EmageVQVAE, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, vae_test_dim) -> (B, T) int32 code indices."""
+    return map2index(m.quantizer, m.encoder(x))
+
+
+@torch.no_grad()
+def vqvae_map2latent(m: EmageVQVAE, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, vae_test_dim) -> (B, T, vae_length): the codebook rows of the indices."""
+    return get_codebook_entry(m.quantizer, vqvae_map2index(m, x))
 
 
 def vqvae_decode_index(m: EmageVQVAE, indices: torch.Tensor) -> torch.Tensor:
@@ -90,6 +132,44 @@ def init_vq_suite(generator: torch.Generator) -> EmageVQSuite:
         lower=part(61),
         global_motion=EmageVAE(EmageVAEConvConfig(), generator=generator),
     )
+
+
+PARTS = ("face", "upper", "hands", "lower")
+UPPER_JOINTS = np.flatnonzero(JOINT_MASK_UPPER).tolist()
+LOWER_JOINTS = np.flatnonzero(JOINT_MASK_LOWER).tolist()
+
+
+def vq_split_inputs(smplx_body_rot6d: torch.Tensor, expression: torch.Tensor,
+                    tar_contact: Optional[torch.Tensor] = None,
+                    tar_trans: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """(bs, t, 330) rot6d and (bs, t, 100) expression, with foot contact (bs, t, 4) and
+    translation (bs, t, 3) (zeros when absent) -> the four part streams: face = jaw
+    rot6d + expression (106), upper (78), hands (180), lower = rot6d + trans + contact
+    (61)."""
+    bs, t, j6 = smplx_body_rot6d.shape
+    r = smplx_body_rot6d.reshape(bs, t, j6 // 6, 6)
+    zeros = lambda c: smplx_body_rot6d.new_zeros(bs, t, c)
+    tar_contact = zeros(4) if tar_contact is None else tar_contact
+    tar_trans = zeros(3) if tar_trans is None else tar_trans
+    return {
+        "face": torch.cat([r[:, :, 22], expression], dim=2),
+        "upper": r[:, :, UPPER_JOINTS].reshape(bs, t, 78),
+        "hands": r[:, :, 25:55].reshape(bs, t, 180),
+        "lower": torch.cat([r[:, :, LOWER_JOINTS].reshape(bs, t, 54), tar_trans, tar_contact],
+                           dim=2),
+    }
+
+
+def vq_map2index(suite: EmageVQSuite, rot6d, expression, tar_contact=None, tar_trans=None):
+    """Per part, (bs, t) int32 code indices of the split inputs."""
+    x = vq_split_inputs(rot6d, expression, tar_contact, tar_trans)
+    return {part: vqvae_map2index(getattr(suite, part), x[part]) for part in PARTS}
+
+
+def vq_map2latent(suite: EmageVQSuite, rot6d, expression, tar_contact=None, tar_trans=None):
+    """Per part, (bs, t, vae_length) codebook rows of the split inputs."""
+    x = vq_split_inputs(rot6d, expression, tar_contact, tar_trans)
+    return {part: vqvae_map2latent(getattr(suite, part), x[part]) for part in PARTS}
 
 
 def vq_get_global_motion(suite: EmageVQSuite, lower_body: torch.Tensor,
@@ -189,6 +269,12 @@ __all__ = [
     "vae_forward",
     "vq_decode",
     "vq_get_global_motion",
+    "vq_map2index",
+    "vq_map2latent",
+    "vq_split_inputs",
     "vqvae_decode_index",
     "vqvae_decode_latent",
+    "vqvae_forward",
+    "vqvae_map2index",
+    "vqvae_map2latent",
 ]
