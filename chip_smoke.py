@@ -80,7 +80,25 @@ Phases, each of which raises on failure (nothing is caught):
      (plain K1) to 2e-3 on rotations and 1e-4 on expressions and translation; generate
      seconds (first and warm), FK seconds and peak memory at V = 10475, and
      evaluate_clips on the card against the CPU (FGD, L1div, LVD, MSE within 1e-4
-     relative, BC equal). It writes outputs/chip_smoke_eval.json.
+     relative, BC equal). It writes outputs/chip_smoke_eval.json;
+ 18. training: (a) K2 under autograd (ops/lstm_cuda.LstmLayerFunction) at the K2 test
+     shapes and the CaMN training shape (64, 64, 512): the forward bitwise equal to
+     lstm_bidirectional, the x_proj and w_hh gradients equal to the plain version's
+     autograd (1e-6) and no further from a float64 run than twice the plain fp32
+     gradients plus 1e-6; CUDA-event ms of the forward, the recompute backward, a layer
+     with its projection, and cuDNN's nn.LSTM forward and forward + backward; (b) one SGD
+     step (iteration 1, TF32 off) of tiny CaMN, DisCo and EMAGE on the CPU and on the
+     card: losses within 1e-5 relative, parameters 1e-4, BatchNorm buffers 1e-5; (c) 20
+     Adam steps at the shipped learning rate on one fixed batch at full width,
+     CamnAudioConfig() and DiscoAudioConfig() at 64 x 128 frames, EmageAudioConfig() at
+     56 x 64 frames with random tokenizers, in fp32 and bf16: finite losses, the last
+     below the first, K2 8 (CaMN) / 4 (DisCo) launches a step, K1 none; median ms a step,
+     frames a second, peak memory; EMAGE also with gradient checkpointing (first-step
+     losses within 1e-5, less memory); (d) the three train CLIs with --debug (and
+     --random_vq) at the shipped configs on a synthetic BEAT2 with the device-resident
+     loader, a resume of the CaMN run from its last.bin continuing at step 5, and the
+     device-resident batches bitwise equal to the host loader's on the card. It writes
+     outputs/chip_smoke_train.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -1532,6 +1550,353 @@ def phase_eval(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# 18. training
+# ---------------------------------------------------------------------------
+
+TRAIN_K2_SHAPE = (64, 64, 512)  # CaMN's shipped clip: 128 frames at 30 fps, read at 15
+TRAIN_STEPS = 20
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-4
+TRAIN_BUFFER_ATOL = 1e-5
+TRAIN_CELLS = {  # family: (batch, clip frames at 30 fps, shipped learning rate)
+    "camn": (64, 128, 3e-4), "disco": (64, 128, 3e-4), "emage": (56, 64, 1.5e-4)}
+TRAIN_K2_PER_STEP = {"camn": 8, "disco": 4, "emage": 0}
+
+
+def train_batch(family: str, bs: int, frames: int, device, seed: int = 0) -> dict:
+    """A training batch from a numpy seed, as the BEAT2 loaders give it: CaMN and DisCo
+    read the clip at 15 fps with the local_upper mask (43 joints), EMAGE at 30 fps with
+    all 55 joints, expressions, translation and foot contact."""
+    from pantomatrix_tpu_torch.nn.blocks import wav_encoder_out_len
+
+    rng = np.random.RandomState(seed)
+    audio = rng.uniform(-0.5, 0.5, (bs, frames * 533)).astype(np.float32)
+    if family == "emage":
+        b = {"motion": rng.uniform(-0.5, 0.5, (bs, frames, 165)),
+             "expressions": rng.uniform(-1, 1, (bs, frames, 100)),
+             "trans": rng.uniform(-1, 1, (bs, frames, 3)),
+             "foot_contact": (rng.uniform(size=(bs, frames, 4)) < 0.5)}
+    else:
+        t = wav_encoder_out_len(audio.shape[1], 128, "camn")
+        b = {"motion": rng.uniform(-0.5, 0.5, (bs, t, 129))}
+    out = {k: torch.from_numpy(np.asarray(v, np.float32)).to(device) for k, v in b.items()}
+    out["audio"] = torch.from_numpy(audio).to(device)
+    if family == "disco":
+        out["rhythm_label"] = torch.from_numpy(rng.randint(0, 3, (bs, 1))).to(device)
+        out["content_label"] = torch.from_numpy(rng.randint(0, 4, (bs, 1))).to(device)
+    return out
+
+
+def train_setup(family: str, device, tiny: bool, lr: float, optimizer: str = "adam",
+                seed: int = 3, **step_kw):
+    """A model of ``family`` (tiny: the parity configs; else the full width), its
+    optimizer and its train step."""
+    from pantomatrix_tpu_torch.cli.test_emage import load_models
+    from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
+    from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
+    from pantomatrix_tpu_torch.train import steps
+    from pantomatrix_tpu_torch.train.optim import make_optimizer
+
+    small = dict(audio_f=128, speaker_f=8, speaker_dims=4, hidden_size=48, n_layer=2,
+                 pose_dims=258, body_dims=78, hands_dims=180, dropout_prob=0.0)
+    if family == "emage":
+        _, model, vq = tiny_models(device) if tiny else (None, *load_models(None, True, device))
+    else:
+        model_cls, cfg_cls = {"camn": (CamnAudioModel, CamnAudioConfig),
+                              "disco": (DiscoAudioModel, DiscoAudioConfig)}[family]
+        model = model_cls(cfg_cls(**small) if tiny else cfg_cls(), seed=seed, device=device)
+    opt = make_optimizer(model.parameters(), learning_rate=lr, optimizer=optimizer)
+    if family == "emage":
+        return model, opt, steps.make_emage_train_step(model, vq, opt, **step_kw)
+    make = steps.make_camn_train_step if family == "camn" else steps.make_disco_train_step
+    return model, opt, make(model, opt, **step_kw)
+
+
+def phase_train_k2(card):
+    """18a. K2 under autograd (ops/lstm_cuda.LstmLayerFunction) against the plain
+    version's autograd, and its times at the CaMN training shape."""
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+
+    fn, plain = lstm_cuda.LstmLayerFunction.apply, lstm_cuda.lstm_bidirectional_plain
+    g = torch.Generator().manual_seed(18)
+    rows = []
+    with strict_fp32():
+        for t, b, h in K2_TEST_SHAPES + [TRAIN_K2_SHAPE]:
+            if (t, b, h) == TRAIN_K2_SHAPE:
+                # a CaMN inner layer: torch-default weights, N(0, 1) input of width 2H
+                bound = h ** -0.5
+                u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * bound).cuda()
+                w_ih, w, bias = u(8 * h, 2 * h), u(2, 4 * h, h), u(8 * h) + u(8 * h)
+                x = torch.randn(t, b, 2 * h, generator=g).cuda()
+                xp = torch.matmul(x, w_ih.T) + bias
+            else:  # the kernel test's distributions
+                xp = torch.randn(t, b, 8 * h, generator=g).cuda()
+                w = (0.2 * torch.randn(2, 4 * h, h, generator=g)).cuda()
+            ct = torch.randn(t, b, 2 * h, generator=g).cuda()
+            leaf = lambda a, dt=torch.float32: a.detach().to(dt).requires_grad_()
+            X, W = leaf(xp), leaf(w)
+            out = fn(X, W, h)
+            fwd_equal = torch.equal(out.detach(), lstm_cuda.lstm_bidirectional(xp, w, h))
+            grads = torch.autograd.grad(out, (X, W), ct)
+            Xp, Wp = leaf(xp), leaf(w)
+            want = torch.autograd.grad(plain(Xp, Wp, h), (Xp, Wp), ct)
+            X64, W64 = leaf(xp, torch.float64), leaf(w, torch.float64)
+            exact = torch.autograd.grad(plain(X64, W64, h), (X64, W64), ct.double())
+            torch.cuda.synchronize()
+            diff = max(float((a - c).abs().max()) for a, c in zip(grads, want))
+            err64 = max(float((a.double() - e).abs().max()) for a, e in zip(grads, exact))
+            plain64 = max(float((a.double() - e).abs().max()) for a, e in zip(want, exact))
+            row = {"shape": [t, b, h], "forward_bitwise": fwd_equal, "grad_max_abs_diff": diff,
+                   "grad_bitwise": all(torch.equal(a, c) for a, c in zip(grads, want)),
+                   "grad_err_vs_fp64": err64, "plain_grad_err_vs_fp64": plain64}
+            if not (fwd_equal and diff <= 1e-6 and err64 <= 2 * plain64 + 1e-6):
+                raise AssertionError(f"K2 under autograd {(t, b, h)}: {row}")
+            if (t, b, h) == TRAIN_K2_SHAPE:
+                with torch.no_grad():
+                    row["forward_ms"] = cuda_ms(lambda: fn(X, W, h), reps=10)
+                out = fn(X, W, h)
+                row["backward_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(out, (X, W), ct, retain_graph=True), reps=5)
+                row["plain_forward_backward_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(plain(X, W, h), (X, W), ct), reps=3, warmup=1)
+                row["bound_ms"], row["bound_by"] = k2_bound(t, b, h, 2)
+                # one layer with its input projection, against cuDNN's bidirectional layer
+                xin, wi, bi = leaf(x), leaf(w_ih), leaf(bias)
+                with torch.no_grad():
+                    row["layer_forward_ms"] = cuda_ms(
+                        lambda: fn(torch.matmul(xin, wi.T) + bi, W, h), reps=10)
+                row["layer_forward_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    fn(torch.matmul(xin, wi.T) + bi, W, h), (xin, wi, bi, W), ct), reps=5)
+                cudnn = torch.nn.LSTM(2 * h, h, bidirectional=True).cuda()
+                with torch.no_grad():
+                    row["library_forward_ms"] = cuda_ms(lambda: cudnn(xin), reps=10)
+                row["library_forward_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    cudnn(xin)[0], (xin, *cudnn.parameters()), ct), reps=5)
+                row["card"] = card
+            rows.append(row)
+            log(f"K2 under autograd {json.dumps(row)}")
+    return rows
+
+
+def _state_err(a: dict, b: dict, keys) -> float:
+    return max((float((a[k].cpu().double() - b[k].cpu().double()).abs().max()) for k in keys),
+               default=0.0)
+
+
+def phase_train_parity():
+    """18b. One SGD step of tiny CaMN, DisCo and EMAGE at iteration 1, TF32 off, on the CPU
+    and on the card."""
+    from pantomatrix_tpu_torch.train.steps import BN_BUFFER_KEYS
+
+    result = {}
+    for family in ("camn", "disco", "emage"):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model, _, step = train_setup(family, device, tiny=True, lr=0.1, optimizer="sgd")
+            bs, frames = (2, 8) if family == "emage" else (2, 30)
+            losses = step(train_batch(family, bs, frames, device, seed=11), 1)
+            runs[device] = ({k: float(v) for k, v in losses.items()}, model.state_dict())
+        (lc, sc), (lg, sg) = runs["cpu"], runs["cuda"]
+        loss_rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc)
+        buffers = [k for k in sc if k.rsplit(".", 1)[-1] in BN_BUFFER_KEYS]
+        params = [k for k in sc if k not in buffers and sc[k].is_floating_point()]
+        row = {"loss_max_rel_err": loss_rel, "param_max_abs_err": _state_err(sc, sg, params),
+               "buffer_max_abs_err": _state_err(sc, sg, buffers)}
+        if not (loss_rel <= TRAIN_LOSS_RTOL and row["param_max_abs_err"] <= TRAIN_PARAM_ATOL
+                and row["buffer_max_abs_err"] <= TRAIN_BUFFER_ATOL):
+            raise AssertionError(f"train parity CPU vs card, {family}: {row}")
+        result[family] = row
+    log(f"train parity CPU vs card (tiny configs, one SGD step, TF32 off): {json.dumps(result)}")
+    return result
+
+
+def run_train_cell(family: str, card, compute_dtype=None, **step_kw) -> dict:
+    """TRAIN_STEPS Adam steps at the shipped learning rate on one fixed full-width batch:
+    losses, K2 launches a step, median ms a step, frames per second, peak memory."""
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+
+    bs, frames, lr = TRAIN_CELLS[family]
+    model, opt, step = train_setup(family, "cuda", tiny=False, lr=lr,
+                                   compute_dtype=compute_dtype, **step_kw)
+    batch = train_batch(family, bs, frames, "cuda")
+    key = "all" if family == "emage" else "all_loss"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_cuda.launches = vq_cuda.launches = 0
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in out.items()})
+    k2_per_step, k2_rest = divmod(lstm_cuda.launches, TRAIN_STEPS)
+    model_frames = batch["motion"].shape[1]
+    step_ms = 1e3 * float(np.median(walls[1:]))
+    cell = {"family": family, "mode": compute_dtype or "float32", **step_kw, "batch": bs,
+            "frames_per_clip": model_frames, "steps": TRAIN_STEPS, "first_step_ms": 1e3 * walls[0],
+            "median_step_ms": step_ms, "frames_per_s": bs * model_frames / (step_ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "k2_launches_per_step": k2_per_step, "k1_launches": vq_cuda.launches,
+            "first_loss": losses[0][key], "last_loss": losses[-1][key],
+            "losses": [x[key] for x in losses], "first_step_losses": losses[0], "card": card}
+    finite = all(np.isfinite(v) for x in losses for v in x.values())
+    if not (finite and cell["last_loss"] < cell["first_loss"]
+            and k2_per_step == TRAIN_K2_PER_STEP[family] and k2_rest == 0
+            and vq_cuda.launches == 0):
+        raise AssertionError(f"train {family} {cell['mode']} {step_kw}: finite={finite}, "
+                             f"{ {k: v for k, v in cell.items() if k != 'losses'} }")
+    log(f"train cell {json.dumps({k: v for k, v in cell.items() if k != 'losses'})}")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return cell
+
+
+def phase_train_full_width(card):
+    """18c. The three families at full width, fp32 and bf16; EMAGE also with gradient
+    checkpointing (same first-step losses, less memory)."""
+    cells = []
+    for family in ("camn", "disco", "emage"):
+        for mode in (None, "bfloat16"):
+            cells.append(run_train_cell(family, card, mode))
+    plain = next(c for c in cells if c["family"] == "emage" and c["mode"] == "float32")
+    ckpt = run_train_cell("emage", card, None, gradient_checkpointing=True)
+    cells.append(ckpt)
+    rel = max(abs(ckpt["first_step_losses"][k] - v) / abs(v)
+              for k, v in plain["first_step_losses"].items())
+    if not (rel <= TRAIN_LOSS_RTOL and ckpt["peak_mem_gb"] < plain["peak_mem_gb"]):
+        raise AssertionError(f"EMAGE gradient checkpointing: first-step losses rel {rel}, "
+                             f"peak {ckpt['peak_mem_gb']} GB against {plain['peak_mem_gb']} GB")
+    log(f"EMAGE gradient checkpointing: first-step losses within {rel:.2e} relative, peak "
+        f"{ckpt['peak_mem_gb']:.2f} GB against {plain['peak_mem_gb']:.2f} GB")
+    return cells, rel
+
+
+def write_train_data(root: Path) -> dict:
+    """A synthetic BEAT2 training set from a numpy seed: 2 takes of 12 s (speaker 2),
+    with 128-frame clips for CaMN and DisCo (with labels) and 64-frame clips for EMAGE,
+    stride 20, as the shipped configs read them."""
+    rng = np.random.RandomState(18)
+    for sub in ("smplxflame_30", "footcontact", "wave16k"):
+        (root / sub).mkdir(parents=True)
+    metas = {"camn": [], "emage": []}
+    for i in range(2):
+        vid, n = f"2_scott_0_{i + 1}_{i + 1}", 12 * 30
+        np.savez(root / "smplxflame_30" / f"{vid}.npz", betas=np.zeros(300, np.float32),
+                 poses=rng.uniform(-0.5, 0.5, (n, 165)).astype(np.float32),
+                 expressions=rng.normal(0, 0.5, (n, 100)).astype(np.float32),
+                 trans=rng.normal(0, 0.3, (n, 3)).astype(np.float32),
+                 model="smplx2020", gender="neutral", mocap_frame_rate=30)
+        np.save(root / "footcontact" / f"{vid}.npy",
+                (rng.uniform(size=(n, 4)) < 0.5).astype(np.float32))
+        wav = np.clip(rng.normal(0, 0.2, n * 16000 // 30), -1, 1)
+        with wave.open(str(root / "wave16k" / f"{vid}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((wav * 32767).astype("<i2").tobytes())
+        for name, length in (("camn", 128), ("emage", 64)):
+            for j, start in enumerate(range(0, n - length + 1, 20)):
+                metas[name].append({
+                    "video_id": vid, "mode": "train", "start_idx": start,
+                    "end_idx": start + length,
+                    "motion_path": str(root / "smplxflame_30" / f"{vid}.npz"),
+                    "audio_path": str(root / "wave16k" / f"{vid}.wav"),
+                    "content_label": j % 4, "rhythm_label": (i + j) % 3})
+    paths = {}
+    for name, m in metas.items():
+        paths[name] = root / f"{name}.json"
+        paths[name].write_text(json.dumps(m))
+    return paths
+
+
+def run_train_cli(family: str, meta: Path, out: Path, flags=()) -> dict:
+    """``python -m pantomatrix_tpu_torch.cli.train_<family> --device cuda`` at the shipped
+    (full-width) config on the synthetic set, batch 8; its run directory and stdout."""
+    import os
+
+    cmd = [sys.executable, "-m", f"pantomatrix_tpu_torch.cli.train_{family}", "--device", "cuda",
+           f"data.meta_paths=['{meta}']", f"data.test_meta_paths=['{meta}']", "data.train_bs=8",
+           f"output_dir={out}", "log_period=1", *flags]
+    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=str(HERE), env=env, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"train_{family} {flags} failed ({r.returncode}):\n{r.stdout[-4000:]}\n"
+                           f"{r.stderr[-4000:]}")
+    (exp,) = [p for p in out.iterdir() if p.is_dir()]
+    for f in ("ckpt/last.bin", "ckpt/last/pytorch_model.bin", "metrics.jsonl"):
+        if not (exp / f).exists():
+            raise AssertionError(f"train_{family} {flags}: no {f} in {exp}")
+    steps = [json.loads(x)["step"] for x in (exp / "metrics.jsonl").read_text().splitlines()]
+    return {"exp": exp, "stdout": r.stdout, "wall_s": wall, "steps": steps}
+
+
+def phase_train_cli(card):
+    """18d. The three train CLIs with --debug and the device-resident loader, a resume of
+    the CaMN run from its last.bin, and the device-resident batches against the host
+    loader's on the card."""
+    from pantomatrix_tpu_torch.data.beat2 import BEAT2Dataset, DataLoader, to_device
+    from pantomatrix_tpu_torch.data.device_data import DeviceResidentLoader
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        metas = write_train_data(root / "beat2")
+        for family, meta, flags in (("camn", metas["camn"], ()), ("disco", metas["camn"], ()),
+                                    ("emage", metas["emage"], ("--random_vq",))):
+            run = run_train_cli(family, meta, root / family, ("--debug", *flags))
+            if "device-resident data: staged" not in run["stdout"] or run["steps"] != [1, 2, 3, 4]:
+                raise AssertionError(f"train_{family} --debug: steps {run['steps']}\n"
+                                     f"{run['stdout']}")
+            result[family] = {"wall_s": run["wall_s"], "steps": run["steps"]}
+            log(f"CLI train_{family} --debug: {run['wall_s']:.1f} s, metrics steps {run['steps']}")
+            if family == "camn":
+                last = run["exp"] / "ckpt" / "last.bin"
+                resumed = run_train_cli("camn", meta, root / "camn_resumed", (
+                    f"resume_from_checkpoint={last}", "solver.max_train_steps=6",
+                    "validation.validation_steps=2", "validation.test_steps=0",
+                    "solver.steps_per_dispatch=1"))
+                if "at step 4" not in resumed["stdout"] or resumed["steps"] != [5, 6]:
+                    raise AssertionError(f"CaMN resume: steps {resumed['steps']}\n"
+                                         f"{resumed['stdout']}")
+                result["camn_resume"] = {"wall_s": resumed["wall_s"], "steps": resumed["steps"]}
+                log(f"CLI train_camn resumed from step 4: metrics steps {resumed['steps']}")
+        checked = {}
+        for variant, fps, mask, meta in (("base", 15, "local_upper", metas["camn"]),
+                                         ("disco", 15, "local_upper", metas["camn"]),
+                                         ("emage_footcontact", 30, None, metas["emage"])):
+            ds = BEAT2Dataset([str(meta)], "train", fps, 16000, mask, variant=variant)
+            host = DataLoader(ds, 8, seed=5)
+            dev = DeviceResidentLoader(host, "cuda")
+            batches = 0
+            for idx, hb in zip(dev, host):
+                got, want = dev.place_batch(idx), to_device(hb, "cuda")
+                if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in got):
+                    raise AssertionError(f"device-resident {variant}: batch {batches} differs")
+                batches += 1
+            checked[variant] = {"batches": batches, "staged_mb": dev.staged_bytes / 2**20,
+                                "audio_dtype": str(dev.buffers["audio"].dtype)}
+        result["device_resident_equal"] = checked
+        log(f"device-resident batches equal the host loader's on the card: {json.dumps(checked)}")
+    return result
+
+
+def phase_train(card):
+    """18. Training: K2 under autograd, CPU/card parity, full width, the CLIs."""
+    t0 = time.time()
+    result = {"card": card, "k2_autograd": phase_train_k2(card),
+              "parity": phase_train_parity()}
+    result["cells"], result["checkpointing_loss_rel"] = phase_train_full_width(card)
+    result["cli"] = phase_train_cli(card)
+    result["seconds"] = time.time() - t0
+    log(f"training phase: {result['seconds']:.1f} s")
+    return result
+
+
 def main():
     t_all = time.time()
     # 1. device
@@ -1586,6 +1951,9 @@ def main():
     # 17. evaluation (counts K1 and K2 launches on its own paths)
     evaluation = phase_eval(card)
     (out_dir / "chip_smoke_eval.json").write_text(json.dumps(evaluation, indent=1))
+    # 18. training (counts K2 launches on its own paths)
+    training = phase_train(card)
+    (out_dir / "chip_smoke_train.json").write_text(json.dumps(training, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     kernels = [{
@@ -1636,6 +2004,11 @@ def main():
         "launches_evaluation": {
             f"{k} per {EVAL_SECONDS} s take": evaluation["launches_per_take"][k]
             for k in ("camn", "disco")},
+        "launches_training": {f"{c['family']} train step": c["k2_launches_per_step"]
+                              for c in training["cells"] if c["mode"] == "float32"
+                              and c["family"] != "emage"},
+        "training": next(r for r in training["k2_autograd"]
+                         if tuple(r["shape"]) == TRAIN_K2_SHAPE),
     })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

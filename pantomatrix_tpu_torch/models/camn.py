@@ -1,11 +1,16 @@
-"""CaMN at inference (counterpart of ``pantomatrix_tpu/models/camn.py``): audio ->
-upper body, cascaded -> hands, at 15 fps.
+"""CaMN (counterpart of ``pantomatrix_tpu/models/camn.py``): audio -> upper body,
+cascaded -> hands, at 15 fps.
 
 WavEncoder (/1080) -> [audio | speaker | seed motion + flag] -> 4-layer bi-LSTM ->
 forward + backward sum -> MLP -> body rot6d (78); the hands bi-LSTM reads the same input
 with the body output appended (the cascade) -> MLP -> hands rot6d (180); the two are
 recombined into (bs, t, 258) and, optionally, turned into 165-d axis-angle through the
 ``local_upper`` joint mask. Every LSTM direction goes through kernel K2 on the card.
+
+The model is built in eval mode, and ``model(...)`` is ``camn_forward``: inference,
+without gradients. In train mode (``model.train()``) ``model(...)`` is ``camn_apply``,
+the same computation with gradients, batch-statistics BatchNorm and dropout (the JAX
+``camn_forward`` with a train ``Ctx``), which ``train/steps.py`` calls.
 """
 from __future__ import annotations
 
@@ -37,16 +42,21 @@ class CamnAudio(nn.Module):
         g = generator
         in_body = cfg.pose_dims + 1 + cfg.speaker_f + cfg.audio_f
         self.audio_encoder = WavEncoder(cfg.audio_f, "camn", generator=g)
-        self.body_motion_decoder = LSTM(in_body, cfg.hidden_size, cfg.n_layer, generator=g)
+        self.body_motion_decoder = LSTM(in_body, cfg.hidden_size, cfg.n_layer, generator=g,
+                                        dropout=cfg.dropout_prob)
         self.body_out = MLP(cfg.hidden_size, cfg.hidden_size, cfg.body_dims, generator=g)
         self.hands_motion_decoder = LSTM(in_body + cfg.body_dims, cfg.hidden_size,
-                                         cfg.n_layer, generator=g)
+                                         cfg.n_layer, generator=g, dropout=cfg.dropout_prob)
         self.hands_out = MLP(cfg.hidden_size, cfg.hidden_size, cfg.hands_dims, generator=g)
         if cfg.speaker_f > 0:
             self.speaker_embedding = Embedding(cfg.speaker_dims, cfg.speaker_f, generator=g)
+        self.eval()
 
     def forward(self, audio, speaker_id, seed_frames: int = 4, seed_motion=None,
                 return_axis_angle: bool = True, compute_dtype=None):
+        if self.training:
+            return camn_apply(self, audio, speaker_id, seed_frames, seed_motion,
+                              return_axis_angle)
         return camn_forward(self, audio, speaker_id, seed_frames, seed_motion,
                             return_axis_angle, compute_dtype)
 
@@ -64,10 +74,18 @@ def camn_forward(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor
     work runs in bfloat16 (float32 reductions inside the primitives, the LSTM recurrence
     in float32, see ``nn/lstm.py``); ``motion`` is cast back to float32 before the
     axis-angle step. None, the default, is the float32 parity path."""
-    cfg = model.config
     dtype = compute_dtype_of(compute_dtype)
     if dtype is not None:
         model, audio = cast_once(model, dtype), audio.to(dtype)
+    return camn_apply(model, audio, speaker_id, seed_frames, seed_motion, return_axis_angle)
+
+
+def camn_apply(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
+               seed_frames: int = 4, seed_motion: Optional[torch.Tensor] = None,
+               return_axis_angle: bool = True) -> Dict[str, torch.Tensor]:
+    """The CaMN computation in the weights' dtype, in whatever mode ``model`` is, with
+    gradients where autograd is on; ``motion`` comes back in float32."""
+    cfg = model.config
     h = cfg.hidden_size
     audio_feat = model.audio_encoder(audio)
     bs, t, _ = audio_feat.shape
@@ -89,4 +107,4 @@ def camn_forward(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor
     return out
 
 
-__all__ = ["CamnAudio", "camn_forward"]
+__all__ = ["CamnAudio", "camn_apply", "camn_forward"]

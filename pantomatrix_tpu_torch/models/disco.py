@@ -1,10 +1,14 @@
-"""DisCo at inference (counterpart of ``pantomatrix_tpu/models/disco.py``): audio ->
-upper-body gesture with content/rhythm disentanglement, at 15 fps.
+"""DisCo (counterpart of ``pantomatrix_tpu/models/disco.py``): audio -> upper-body
+gesture with content/rhythm disentanglement, at 15 fps.
 
 The WavEncoder features feed three MLP heads (content 1, content 2, rhythm); a softmax
 selector over the last axis blends the two content streams; the decoder bi-LSTM reads
 [content | rhythm | speaker | seed motion + flag], and one MLP emits the 258-d rot6d
 pose (no hands cascade). Every LSTM direction goes through kernel K2 on the card.
+
+As for CaMN, ``model(...)`` is ``disco_forward`` (inference) in eval mode, the mode the
+model is built in, and ``disco_apply`` (gradients, train-mode layers) after
+``model.train()``.
 """
 from __future__ import annotations
 
@@ -36,13 +40,17 @@ class DiscoAudio(nn.Module):
         self.audio_encoder_r = MLP(a, h, a, generator=g)
         self.selector = MLP(a, h, 2, generator=g)
         self.body_motion_decoder = LSTM(cfg.pose_dims + 1 + cfg.speaker_f + 2 * a, h,
-                                        cfg.n_layer, generator=g)
+                                        cfg.n_layer, generator=g, dropout=cfg.dropout_prob)
         self.body_out = MLP(h, h, cfg.pose_dims, generator=g)
         if cfg.speaker_f > 0:
             self.speaker_embedding = Embedding(cfg.speaker_dims, cfg.speaker_f, generator=g)
+        self.eval()
 
     def forward(self, audio, speaker_id, seed_frames: int = 4, seed_motion=None,
                 return_axis_angle: bool = True, compute_dtype=None):
+        if self.training:
+            return disco_apply(self, audio, speaker_id, seed_frames, seed_motion,
+                               return_axis_angle)
         return disco_forward(self, audio, speaker_id, seed_frames, seed_motion,
                              return_axis_angle, compute_dtype)
 
@@ -59,10 +67,19 @@ def disco_forward(model: DiscoAudio, audio: torch.Tensor, speaker_id: torch.Tens
 
     ``compute_dtype="bfloat16"``: the serving mode, as in ``camn_forward``; the audio
     features come back in bfloat16, ``motion`` and its axis angles in float32."""
-    cfg = model.config
     dtype = compute_dtype_of(compute_dtype)
     if dtype is not None:
         model, audio = cast_once(model, dtype), audio.to(dtype)
+    return disco_apply(model, audio, speaker_id, seed_frames, seed_motion, return_axis_angle)
+
+
+def disco_apply(model: DiscoAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
+                seed_frames: int = 4, seed_motion: Optional[torch.Tensor] = None,
+                return_axis_angle: bool = True) -> Dict[str, torch.Tensor]:
+    """The DisCo computation in the weights' dtype, in whatever mode ``model`` is, with
+    gradients where autograd is on; ``motion`` comes back in float32, the audio features
+    in the weights' dtype."""
+    cfg = model.config
     h = cfg.hidden_size
     audio_feat = model.audio_encoder(audio)
     bs, t, _ = audio_feat.shape
@@ -86,4 +103,4 @@ def disco_forward(model: DiscoAudio, audio: torch.Tensor, speaker_id: torch.Tens
     return out
 
 
-__all__ = ["DiscoAudio", "disco_forward"]
+__all__ = ["DiscoAudio", "disco_apply", "disco_forward"]

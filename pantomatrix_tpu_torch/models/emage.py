@@ -1,4 +1,4 @@
-"""EMAGE masked audio-gesture transformer at inference (counterpart of
+"""EMAGE masked audio-gesture transformer (counterpart of
 ``pantomatrix_tpu/models/emage.py``), with the reference's quirks:
 
 - the duplicated audio-truncation branch assigns ``audio2face_fea`` twice; the body
@@ -15,6 +15,12 @@ Two opt-in serving modes follow the JAX package's: ``compute_dtype="bfloat16"`` 
 the audio model in bfloat16 (weights cast once, reductions and the VQ suite in float32,
 see ``utils/precision.py``), and ``batched_wav`` encodes the audio of every full window
 in one WavEncoder call before the loop.
+
+The model is built in eval mode. In train mode (``model.train()``) ``model(...)`` is
+``emage_apply``: one masked pass with gradients, batch-statistics BatchNorm and dropout,
+which the training objective (``train/steps.py``) runs three times a step. Inference
+(``emage_inference``, whose CUDA graphs are captured in eval mode only) raises on a
+model in train mode.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ class EmageAudio(nn.Module):
         super().__init__()
         self.config = cfg
         g = generator
-        h = cfg.hidden_size
+        h, p = cfg.hidden_size, cfg.dropout_prob
         cb = cfg.vae_codebook_size
         self.audio_encoder_face = WavEncoder(cfg.audio_f, generator=g)
         self.audio_encoder_body = WavEncoder(cfg.audio_f, generator=g)
@@ -70,25 +76,28 @@ class EmageAudio(nn.Module):
         self.audio_body_motion_proj = Linear(cfg.audio_f, h, generator=g)
         self.moton_proj = Linear(cfg.motion_f, h, generator=g)
         self.position_embeddings = PositionEmbeddings(h, cfg.pose_length)
-        self.motion_self_encoder = TransformerEncoder(1, h, h * 2, 4, generator=g)
-        self.audio_motion_cross_attn = TransformerDecoder(8, h, h * 2, 4, generator=g)
+        self.motion_self_encoder = TransformerEncoder(1, h, h * 2, 4, generator=g, dropout=p)
+        self.audio_motion_cross_attn = TransformerDecoder(8, h, h * 2, 4, generator=g, dropout=p)
         for part in PARTS:
             setattr(self, f"motion2latent_{part}", MLP(h, h, h, generator=g))
         for part in PARTS:
             setattr(self, f"body_motion_decoder_{part}",
-                    TransformerDecoder(1, h, h * 2, 4, generator=g))
+                    TransformerDecoder(1, h, h * 2, 4, generator=g, dropout=p))
         for part in PARTS:
             setattr(self, f"motion_out_proj_{part}", Linear(h, cb, generator=g))
         for part in PARTS:
             setattr(self, f"motion_cls_{part}", MLP(cb, h, cb, generator=g))
         self.audio_face_motion_proj = Linear(cfg.audio_f + cfg.motion_f, h, generator=g)
-        self.face_motion_decoder = TransformerDecoder(4, h, h * 2, 4, generator=g)
+        self.face_motion_decoder = TransformerDecoder(4, h, h * 2, 4, generator=g, dropout=p)
         self.face_out_proj = Linear(h, cb, generator=g)
         self.face_cls = MLP(cb, h, cb, generator=g)
+        self.eval()
 
-    def forward(self, audio, speaker_id, masked_motion, mask, use_audio: bool = True):
-        return emage_forward(self, audio, speaker_id, masked_motion, mask,
-                             use_audio=use_audio)
+    def forward(self, audio, speaker_id, masked_motion, mask, use_audio: bool = True,
+                audio_features=None):
+        fn = emage_apply if self.training else emage_forward
+        return fn(self, audio, speaker_id, masked_motion, mask, audio_features=audio_features,
+                  use_audio=use_audio)
 
 
 @torch.no_grad()
@@ -97,6 +106,15 @@ def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tens
                   masked_motion: torch.Tensor, mask: torch.Tensor,
                   audio_features: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   use_audio: bool = True) -> Dict[str, torch.Tensor]:
+    """``emage_apply`` without gradients: the inference pass."""
+    return emage_apply(model, audio, speaker_id, masked_motion, mask, audio_features,
+                       use_audio)
+
+
+def emage_apply(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
+                masked_motion: torch.Tensor, mask: torch.Tensor,
+                audio_features: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                use_audio: bool = True) -> Dict[str, torch.Tensor]:
     """One masked-transformer pass over a (bs, t, 337) window with its audio
     (bs, t * 533). Returns per-part latents ``rec_*`` and codebook logits ``cls_*``,
     in the dtype of the model's weights.
@@ -104,9 +122,12 @@ def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tens
     ``audio_features``: the window's precomputed (face, body) WavEncoder outputs, in
     place of running the encoders on ``audio``. ``use_audio=False`` is the reference's
     no-audio pass: it multiplies the 8-layer cross-attention stack's output by zero, so
-    the stack is skipped here, as in the JAX package."""
+    the stack is skipped here, as in the JAX package. In train mode the periodic
+    positional encodings and the transformer layers apply dropout."""
     h = model.config.hidden_size
     pe = model.position_embeddings.pe
+    pos = lambda x: periodic_positional_encoding(pe, x, model.config.dropout_prob,
+                                                 model.training)
 
     # mask == 1 slots are replaced by the learned mask embedding
     masked_motion = torch.where(mask == 1, model.mask_embedding, masked_motion)
@@ -133,14 +154,13 @@ def emage_forward(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Tens
     # face: speaker PE query cross-attends over [audio | hint] memory
     face_memory = model.audio_face_motion_proj(
         torch.cat([audio2face_fea, body_hint_face[:, :t]], dim=2))
-    decode_face = model.face_motion_decoder(
-        periodic_positional_encoding(pe, spk_face), face_memory)
+    decode_face = model.face_motion_decoder(pos(spk_face), face_memory)
     face_latent = model.face_out_proj(decode_face)
 
     # body: self-attention, then the 8-layer cross-attention into the audio
-    motion_proj = spk_body + periodic_positional_encoding(pe, model.moton_proj(body_hint_body))
+    motion_proj = spk_body + pos(model.moton_proj(body_hint_body))
     motion_fea = model.motion_self_encoder(motion_proj)
-    motion_fea = periodic_positional_encoding(pe, motion_fea + spk_body)
+    motion_fea = pos(motion_fea + spk_body)
     if use_audio:
         audio2body_proj = model.audio_body_motion_proj(audio2body_fea)
         motion_fea = motion_fea + model.audio_motion_cross_attn(motion_fea, audio2body_proj)
@@ -275,6 +295,8 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
     WavEncoders run once over every full window's audio before the loop, when
     ``use_batched_wav(rounds, bs)``; the remainder window encodes its own. Each mode is
     the JAX package's, and neither is the float32 parity path (``None``, ``False``)."""
+    if model.training:
+        raise RuntimeError("emage_inference runs an eval-mode model: call model.eval() first")
     step = graph_window_step(graphs_of(model)) if audio.is_cuda else _window_step
     return _inference_loop(model, audio, speaker_id, suite, masked_motion, mask,
                            compute_dtype, batched_wav, step)
@@ -349,6 +371,7 @@ __all__ = [
     "EmageAudio",
     "SAMPLES_PER_FRAME",
     "batched_audio_features",
+    "emage_apply",
     "emage_forward",
     "emage_inference",
     "graph_window_step",

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import BatchNorm1d, Conv1d, Linear, leaky_relu
+from .layers import BatchNorm1d, Conv1d, Linear, dropout, leaky_relu
 
 
 class MLP(nn.Module):
@@ -193,9 +193,10 @@ def make_periodic_pe(d_model: int, period: int, max_seq_len: int) -> torch.Tenso
     return torch.from_numpy(np.tile(pe[None], (1, repeat_num, 1)).astype(np.float32))
 
 
-def periodic_positional_encoding(pe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x (B, T, d) + pe[:, :T] (dropout is the identity at eval)."""
-    return x + pe[:, : x.shape[1], :]
+def periodic_positional_encoding(pe: torch.Tensor, x: torch.Tensor, dropout_rate: float = 0.0,
+                                 training: bool = False) -> torch.Tensor:
+    """x (B, T, d) + pe[:, :T], then dropout (train mode only)."""
+    return dropout(x + pe[:, : x.shape[1], :], dropout_rate, training)
 
 
 __all__ = [

@@ -3,8 +3,15 @@ parameters under the JAX package's ``state_dict`` paths (``nn/layers.py`` there)
 
 Activations are channels-last ``(batch, length, channels)`` at every public function,
 as in the JAX package; weights keep torch layout, so ``conv1d`` transposes to torch's
-``(B, C, L)`` inside. Only eval-mode semantics exist here (dropout is the identity,
-BatchNorm normalizes with running statistics).
+``(B, C, L)`` inside.
+
+Modes follow ``nn.Module.training``, but every module here is built in eval mode (the
+inference paths never call ``.eval()``); ``model.train()`` turns training on. In eval
+mode dropout is the identity and BatchNorm normalizes with its running statistics. In
+train mode BatchNorm normalizes with the batch's statistics and updates its running ones
+in place, and dropout draws its masks from the generator of the enclosing
+:func:`dropout_rng` scope (a :class:`DropoutRng`, seeded by the caller), the counterpart
+of the JAX package's ``Ctx``.
 
 Random init draws from an explicit CPU ``torch.Generator`` with the same
 distributions as the JAX initializers (torch defaults), so a seed gives one set of
@@ -14,8 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -86,6 +95,25 @@ def batch_norm1d(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch
     return (x - running_mean) * (torch.rsqrt(running_var + eps) * weight) + bias
 
 
+def batch_norm1d_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       eps: float = 1e-5):
+    """Train-mode BatchNorm1d over the last (channel) dim: normalize with the biased
+    batch statistics. Returns (y, mean, var); the statistics are reduced in float32 under
+    bfloat16/float16 activations, with the two-pass variance, as in the JAX package's
+    ``batch_norm1d`` with ``Ctx(train=True)``."""
+    low = x.dtype in LOW_PRECISION
+    xf = x.float() if low else x
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dims)
+    var = (xf - mean).square().mean(dims)
+    inv = torch.rsqrt(var + eps)
+    if low:
+        scale = inv * weight.float()
+        shift = bias.float() - mean * scale
+        return x * scale.to(x.dtype) + shift.to(x.dtype), mean, var
+    return (x - mean) * (inv * weight) + bias, mean, var
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """torch nn.LayerNorm over the last dim. Under bfloat16/float16 activations torch's
@@ -100,6 +128,89 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 
 def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return F.log_softmax(x, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# train mode: dropout generators and BatchNorm running statistics
+# ---------------------------------------------------------------------------
+
+_local = threading.local()  # the current DropoutRng and the frozen-statistics flag
+
+
+def mix_seed(*keys: int) -> int:
+    """A 64-bit seed drawn from non-negative integer ``keys`` (numpy's SeedSequence), so
+    that nearby keys such as (seed, iteration) give unrelated generators."""
+    return int(np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0])
+
+
+class DropoutRng:
+    """A node of a tree of dropout generators. ``generator`` is a ``torch.Generator`` on
+    ``device`` seeded with ``seed``; each ``split()`` gives a child with a seed of its
+    own, in call order, like the JAX package's ``Ctx.next_rng`` fold-ins. The port cannot
+    reproduce ``jax.random``'s bits and does not try; a seed gives the same masks on one
+    device every time."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.seed, self.device = int(seed), torch.device(device)
+        self._generator: Optional[torch.Generator] = None
+        self._children = 0
+
+    @property
+    def generator(self) -> torch.Generator:
+        if self._generator is None:
+            self._generator = torch.Generator(self.device).manual_seed(self.seed)
+        return self._generator
+
+    def split(self) -> "DropoutRng":
+        self._children += 1
+        return DropoutRng(mix_seed(self.seed, self._children), self.device)
+
+
+@contextlib.contextmanager
+def dropout_rng(rng: Optional[DropoutRng]):
+    """Train-mode dropout inside the scope draws from ``rng`` (per thread)."""
+    prev = getattr(_local, "rng", None)
+    _local.rng = rng
+    try:
+        yield rng
+    finally:
+        _local.rng = prev
+
+
+def child_rng():
+    """A scope whose dropout draws from a new child of the current generator: one per
+    transformer stack, and one per layer of it (the JAX package's ``_layer_keys``).
+    Nothing changes where no generator is set."""
+    rng = getattr(_local, "rng", None)
+    return dropout_rng(rng.split()) if rng is not None else contextlib.nullcontext()
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """torch nn.Dropout: the identity in eval mode or at rate 0, else inverted scaling
+    with a mask drawn from the current :func:`dropout_rng` generator (raises without
+    one, as the JAX package raises without ``Ctx.rng``)."""
+    if not training or rate == 0.0:
+        return x
+    rng = getattr(_local, "rng", None)
+    if rng is None:
+        raise ValueError("train-mode dropout needs a generator: run it inside "
+                         "nn.layers.dropout_rng(DropoutRng(seed, device))")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng.generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorm inside the scope normalizes with batch statistics but leaves
+    its running statistics alone: the recomputation of a checkpointed forward
+    (``torch.utils.checkpoint``'s ``context_fn``) must not update them a second time."""
+    prev = getattr(_local, "frozen", False)
+    _local.frozen = True
+    try:
+        yield
+    finally:
+        _local.frozen = prev
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +282,12 @@ class Conv1d(nn.Module):
 
 class BatchNorm1d(nn.Module):
     """Keys ``weight``, ``bias``, ``running_mean``, ``running_var`` and
-    ``num_batches_tracked`` (present in the JAX tree, unused at eval)."""
+    ``num_batches_tracked``. Built in eval mode (running statistics); in train mode it
+    normalizes with batch statistics and updates the running ones in place with momentum
+    0.1 and the unbiased variance (float32 whatever the activation dtype), and counts
+    the batch, unless inside :func:`frozen_running_stats`."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -180,9 +296,21 @@ class BatchNorm1d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm1d(x, self.running_mean, self.running_var, self.weight, self.bias)
+        if not self.training:
+            return batch_norm1d(x, self.running_mean, self.running_var, self.weight, self.bias)
+        y, mean, var = batch_norm1d_train(x, self.weight, self.bias)
+        if not getattr(_local, "frozen", False):
+            n = x.numel() // x.shape[-1]
+            m = self.momentum
+            with torch.no_grad():
+                mean, unbiased = mean.detach(), var.detach() * (n / max(n - 1, 1))
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        return y
 
 
 class LayerNorm(nn.Module):
@@ -197,17 +325,24 @@ class LayerNorm(nn.Module):
 
 __all__ = [
     "BatchNorm1d",
+    "DropoutRng",
     "Conv1d",
     "Embedding",
     "LayerNorm",
     "Linear",
     "batch_norm1d",
+    "batch_norm1d_train",
+    "child_rng",
     "conv1d",
+    "dropout",
+    "dropout_rng",
     "embedding",
+    "frozen_running_stats",
     "layer_norm",
     "leaky_relu",
     "linear",
     "log_softmax",
+    "mix_seed",
     "normal",
     "strict_fp32",
     "uniform",

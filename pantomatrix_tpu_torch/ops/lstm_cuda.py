@@ -14,7 +14,13 @@ Every function starts from h = c = 0 and uses torch's gate order i, f, g, o.
   ``cat([fwd, rev.flip(0)], -1)``, with no flip or concatenation materialised.
 
 Each sends CPU tensors to its plain version and CUDA tensors to the kernel; on a CUDA
-tensor it launches the kernel or raises. The kernel is a cooperative launch that needs
+tensor it launches the kernel or raises. For training, :class:`LstmLayerFunction` is
+``lstm_bidirectional`` under autograd: its forward is the same one launch, and its
+backward recomputes the layer through the plain version and returns that version's
+vector-Jacobian product for ``x_proj`` and ``w_hh`` (the JAX package's
+``_lstm_direction_pallas_bwd``: no backward kernel exists there either). On a CUDA
+tensor that needs a gradient ``lstm_bidirectional`` goes through it; on CPU tensors the
+plain version runs under ordinary autograd. The kernel is a cooperative launch that needs
 all of its CTAs co-resident, one per SM (:func:`plan_layer`), so it wants the whole
 card: where that fails (a card shared under MPS, say) the launch raises. ``launches``
 counts the kernel's executions on the device, one per layer call, so a run can show
@@ -239,18 +245,54 @@ def lstm_direction(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> tor
     return _launch(x_proj, w_hh.contiguous(), hidden, 1)
 
 
+def _bidirectional_checked(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> bool:
+    on_card = _check(x_proj, w_hh, hidden, 2)
+    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
+        raise ValueError("lstm_bidirectional takes contiguous x_proj and w_hh")
+    return on_card
+
+
+class LstmLayerFunction(torch.autograd.Function):
+    """``lstm_bidirectional`` with a gradient: ``apply(x_proj, w_hh, hidden)``. The
+    forward launches the kernel once on CUDA tensors (the plain version, in any dtype, on
+    CPU tensors, which lets the CPU tests check this function); the backward recomputes
+    the layer through ``lstm_bidirectional_plain`` and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, hidden):
+        ctx.save_for_backward(x_proj, w_hh)
+        ctx.hidden = hidden
+        if x_proj.device.type == "cpu" and w_hh.device.type == "cpu":
+            return lstm_bidirectional_plain(x_proj, w_hh, hidden)
+        _bidirectional_checked(x_proj, w_hh, hidden)
+        return _launch(x_proj, w_hh, hidden, 2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x_proj, w_hh = ctx.saved_tensors
+        with torch.enable_grad():
+            xp = x_proj.detach().requires_grad_(ctx.needs_input_grad[0])
+            w = w_hh.detach().requires_grad_(ctx.needs_input_grad[1])
+            out = lstm_bidirectional_plain(xp, w, ctx.hidden)
+            wanted = [t for t in (xp, w) if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (next(grads) if xp.requires_grad else None,
+                next(grads) if w.requires_grad else None, None)
+
+
 def lstm_bidirectional(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> torch.Tensor:
     """x_proj (T, B, 8H) float32, w_hh (2, 4H, H) float32 -> (T, B, 2H), forward then
     reverse hidden states (see the module docstring). Both must be contiguous. CPU
     tensors take the plain version; CUDA tensors launch the kernel once, both directions
-    together, on the current stream."""
-    on_card = _check(x_proj, w_hh, hidden, 2)
-    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
-        raise ValueError("lstm_bidirectional takes contiguous x_proj and w_hh")
-    if not on_card:
+    together, on the current stream, through :class:`LstmLayerFunction` where a gradient
+    is wanted."""
+    if not _bidirectional_checked(x_proj, w_hh, hidden):
         return lstm_bidirectional_plain(x_proj, w_hh, hidden)
+    if torch.is_grad_enabled() and (x_proj.requires_grad or w_hh.requires_grad):
+        return LstmLayerFunction.apply(x_proj, w_hh, hidden)
     return _launch(x_proj, w_hh, hidden, 2)
 
 
-__all__ = ["LayerPlan", "captured", "launches", "lstm_bidirectional", "lstm_bidirectional_plain",
-           "lstm_direction", "lstm_direction_plain", "plan_layer", "smem_bytes", "k_split"]
+__all__ = ["LayerPlan", "LstmLayerFunction", "captured", "launches", "lstm_bidirectional",
+           "lstm_bidirectional_plain", "lstm_direction", "lstm_direction_plain", "plan_layer",
+           "smem_bytes", "k_split"]

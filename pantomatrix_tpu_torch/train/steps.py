@@ -1,0 +1,318 @@
+"""Train steps of the three families (counterpart of ``pantomatrix_tpu/train/steps.py``).
+
+Each ``make_*_train_step`` returns ``step(batch, iteration) -> losses``: it puts the model
+in train mode, runs the objective, back-propagates and updates the model and the
+optimizer in place, and returns the losses as detached 0-d tensors (read them at a log
+period: reading syncs the card). ``batch`` holds tensors on the model's device. Where
+the JAX package splits its parameter tree into trainable leaves and BatchNorm buffers,
+here they are the module's parameters and buffers: BatchNorm updates its running
+statistics in place in train mode (``nn/layers.py``). Every step runs under
+``strict_fp32`` (no TF32, full-precision reductions), as the port's float32 paths do.
+
+Randomness: each step draws its dropout masks and EMAGE's random mask from generators
+seeded by ``(seed, iteration)`` (``nn/layers.DropoutRng``), on the model's device. The
+port does not reproduce ``jax.random``'s bits. ``make_multi_step`` (k steps as one TPU
+program) is not ported: ``train/loop.py`` runs the steps one by one.
+
+``compute_dtype="bfloat16"``: the floating parameters (and the floating buffers other
+than BatchNorm's running statistics: the positional-encoding table) are cast inside the
+differentiated computation and substituted with ``torch.func.functional_call``, so the
+float32 master weights receive float32 gradients. Targets, losses, reductions and the
+BatchNorm running statistics stay float32.
+
+Documented reference-bug policy (as in the JAX package):
+- grad clip before backward (= no clipping): ``train/optim.py`` ``clip_parity``;
+- the EMAGE mask-ratio schedule ``(iter / 135 * 400) * 0.95 + 0.05`` is above 1 from the
+  first iteration on (everything masked). ``mask_schedule="reference"`` keeps it;
+  ``"corrected"`` uses iter / (135 * 400), capped at 1.
+
+One difference from the JAX EMAGE step, not copied: the JAX package's trainable tree
+holds the periodic positional-encoding table (``position_embeddings.pe``), so its
+optimizer updates the table. In the reference and here it is a buffer and stays fixed.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..core.rotations import axis_angle_to_rotation_6d, rotation_6d_to_matrix
+from ..models.emage_vq import EmageVQSuite, vq_map2index, vq_map2latent
+from ..nn.layers import (
+    BatchNorm1d,
+    DropoutRng,
+    dropout_rng,
+    frozen_running_stats,
+    mix_seed,
+    strict_fp32,
+)
+from ..utils.precision import compute_dtype_of
+from .losses import cls_loss, contrastive_loss, geodesic_loss, rec_loss
+from .optim import TrainOptimizer
+
+BN_BUFFER_KEYS = ("running_mean", "running_var", "num_batches_tracked")
+
+Step = Callable[[Dict[str, torch.Tensor], int], Dict[str, torch.Tensor]]
+
+
+def mask_ratio_schedule(iteration: float, mode: str = "reference") -> float:
+    """EMAGE's random-mask ratio (the reference's train_emage_audio.py:163)."""
+    if mode == "reference":
+        return (iteration / 135 * 400) * 0.95 + 0.05
+    if mode == "corrected":
+        return min(iteration / (135 * 400) * 0.95 + 0.05, 1.0)
+    raise ValueError(mode)
+
+
+def step_seed(seed: int, iteration: int) -> int:
+    """The seed of step ``iteration``'s generators."""
+    return mix_seed(seed, iteration)
+
+
+def compute_params(model: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """The tensors ``torch.func.functional_call`` substitutes in ``model`` under a
+    low-precision compute dtype: every floating parameter, and every floating buffer but
+    BatchNorm's running statistics, cast to ``dtype`` by differentiable casts. Empty for
+    float32, where the model runs as it is."""
+    if dtype is None:
+        return {}
+    out = {n: p.to(dtype) for n, p in model.named_parameters() if p.is_floating_point()}
+    out.update({n: b.to(dtype) for n, b in model.named_buffers()
+                if b.is_floating_point() and n.rsplit(".", 1)[-1] not in BN_BUFFER_KEYS})
+    return out
+
+
+def sub_params(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``params`` under submodule ``prefix``, relative to it."""
+    return {k[len(prefix) + 1:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+def call(module: nn.Module, params: Dict[str, torch.Tensor], *args, **kwargs):
+    """``module(*args, **kwargs)`` with ``params`` substituted (none: as it is)."""
+    if not params:
+        return module(*args, **kwargs)
+    return torch.func.functional_call(module, params, args, kwargs)
+
+
+def _cast(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.Tensor:
+    return x if dtype is None else x.to(dtype)
+
+
+def _rot6d(motion: torch.Tensor) -> torch.Tensor:
+    """(bs, t, j*3) axis angles -> (bs, t, j*6) rot6d."""
+    bs, t, jc = motion.shape
+    return axis_angle_to_rotation_6d(motion.reshape(bs, t, jc // 3, 3)).reshape(bs, t, -1)
+
+
+def _geodesic(pred6d: torch.Tensor, gt6d: torch.Tensor) -> torch.Tensor:
+    bs, t, d = gt6d.shape
+    m = lambda x: rotation_6d_to_matrix(x.float().reshape(bs, t, d // 6, 6))
+    return geodesic_loss(m(pred6d), m(gt6d))
+
+
+def _speaker(batch) -> torch.Tensor:
+    motion = batch["motion"]
+    return torch.zeros((motion.shape[0], 1), dtype=torch.long, device=motion.device)
+
+
+@contextlib.contextmanager
+def _onednn_off():
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+def _make_step(model: nn.Module, optimizer: TrainOptimizer, loss_fn,
+               dtype: Optional[torch.dtype]) -> Step:
+    """``loss_fn(batch, iteration) -> (loss, losses)`` as an update step.
+
+    On the CPU in a low-precision dtype oneDNN is off for the step: its bfloat16
+    convolution weight gradient comes back non-finite now and then on finite inputs
+    (PyTorch 2.13's CPU build; PyTorch's own kernels are used instead)."""
+
+    def step(batch: Dict[str, torch.Tensor], iteration: int) -> Dict[str, torch.Tensor]:
+        model.train()
+        on_cpu = next(model.parameters()).device.type == "cpu"
+        no_onednn = _onednn_off() if dtype is not None and on_cpu else contextlib.nullcontext()
+        with strict_fp32(), no_onednn:
+            loss, losses = loss_fn(batch, iteration)
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def _amplify_bn_updates(snapshot, k: int) -> None:
+    """Turn one same-batch BatchNorm update (from the state in ``snapshot``) into the
+    state after ``k`` identical updates: r_k = r_0 + (r_1 - r_0) (1 - (1 - m)^k) / m.
+    The reference's three passes run the audio encoders on the same audio, so their
+    batch statistics are equal and the three updates collapse to this closed form."""
+    with torch.no_grad():
+        for bn, (mean0, var0) in snapshot.items():
+            m = bn.momentum
+            factor = (1.0 - (1.0 - m) ** k) / m
+            bn.running_mean.copy_(mean0 + factor * (bn.running_mean - mean0))
+            bn.running_var.copy_(var0 + factor * (bn.running_var - var0))
+            bn.num_batches_tracked.add_(k - 1)
+
+
+def make_emage_train_step(model: nn.Module, suite: EmageVQSuite, optimizer: TrainOptimizer,
+                          mask_schedule: str = "reference",
+                          gradient_checkpointing: bool = False,
+                          share_audio_encoder: bool = True,
+                          compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+    """EMAGE's 3-pass masked objective against the frozen tokenizers' targets (the
+    reference's train_emage_audio.py:130-183): pass 1 with the seed mask, pass 2 with a
+    random mask and audio, pass 3 with the same mask and no audio; latent MSE and code
+    classification per pass. Losses: rec_seed, cls_seed, rec_audio, cls_audio, rec_mask,
+    cls_mask and their sum, all.
+
+    ``gradient_checkpointing``: each pass runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward pass). The recomputation draws the same
+    dropout masks (its generators are seeded inside the checkpointed function) and does
+    not update the BatchNorm running statistics again (``frozen_running_stats``).
+
+    ``share_audio_encoder``: run the two WavEncoders once per step instead of once per
+    pass. Their input is the same audio in all three passes (pass 3's no-audio flag only
+    drops the 8-layer stack), so the shared features and summed gradients equal the
+    per-pass ones, and their running statistics take the closed form of three updates
+    (``_amplify_bn_updates``)."""
+    cfg = model.config
+    dtype = compute_dtype_of(compute_dtype)
+    w = dict(lu=cfg.lu, ll=cfg.ll, lh=cfg.lh, lf=cfg.lf)
+    c = dict(cu=cfg.cu, cl=cfg.cl, ch=cfg.ch, cf=cfg.cf)
+    encoders = ("audio_encoder_face", "audio_encoder_body")
+
+    def forward_pass(params, pass_seed, audio, speaker_id, masked_motion, mask, use_audio,
+                     audio_features):
+        with dropout_rng(DropoutRng(pass_seed, audio.device)):
+            return call(model, params, audio, speaker_id, masked_motion, mask,
+                        use_audio=use_audio, audio_features=audio_features)
+
+    def run_pass(*args):
+        if not gradient_checkpointing:
+            pred = forward_pass(*args)
+        else:
+            pred = checkpoint(forward_pass, *args, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  frozen_running_stats()))
+        return {k: v.float() for k, v in pred.items()}
+
+    def loss_fn(batch, iteration):
+        rot6d = _rot6d(batch["motion"])
+        speaker_id = _speaker(batch)
+        with torch.no_grad():  # targets stay float32: the frozen suite
+            args = (suite, rot6d, batch["expressions"], batch["foot_contact"], batch["trans"])
+            target_idx, target_lat = vq_map2index(*args), vq_map2latent(*args)
+        masked_motion = torch.cat([rot6d, batch["trans"], batch["foot_contact"]], dim=-1)
+
+        params = compute_params(model, dtype)
+        audio, masked_motion = _cast(dtype, batch["audio"]), _cast(dtype, masked_motion)
+        seed0 = step_seed(seed, iteration)
+        features = None
+        if share_audio_encoder:
+            snapshot = {bn: (bn.running_mean.clone(), bn.running_var.clone())
+                        for name in encoders for bn in getattr(model, name).modules()
+                        if isinstance(bn, BatchNorm1d)}
+            with dropout_rng(DropoutRng(mix_seed(seed0, 0), audio.device)):
+                features = tuple(call(getattr(model, name), sub_params(params, name), audio)
+                                 for name in encoders)
+            _amplify_bn_updates(snapshot, 3)
+
+        losses = {}
+        mask1 = torch.ones_like(masked_motion)
+        mask1[:, :cfg.seed_frames] = 0.0
+        pred = run_pass(params, mix_seed(seed0, 1), audio, speaker_id, masked_motion, mask1,
+                        True, features)
+        losses["rec_seed"] = rec_loss(pred, target_lat, **w)
+        losses["cls_seed"] = cls_loss(pred, target_idx, **c)
+
+        ratio = mask_ratio_schedule(float(iteration), mask_schedule)
+        g = torch.Generator(masked_motion.device).manual_seed(mix_seed(seed0, 4))
+        mask2 = (torch.rand(masked_motion.shape, generator=g, device=masked_motion.device)
+                 < ratio).to(masked_motion.dtype)
+        pred = run_pass(params, mix_seed(seed0, 2), audio, speaker_id, masked_motion, mask2,
+                        True, features)
+        losses["rec_audio"] = rec_loss(pred, target_lat, **w)
+        losses["cls_audio"] = cls_loss(pred, target_idx, **c)
+
+        pred = run_pass(params, mix_seed(seed0, 3), audio, speaker_id, masked_motion, mask2,
+                        False, features)
+        losses["rec_mask"] = rec_loss(pred, target_lat, **w)
+        losses["cls_mask"] = cls_loss(pred, target_idx, **c)
+        losses["all"] = sum(losses.values())
+        return losses["all"], losses
+
+    return _make_step(model, optimizer, loss_fn, dtype)
+
+
+def make_camn_train_step(model: nn.Module, optimizer: TrainOptimizer,
+                         compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+    """CaMN's geodesic objective on rot6d (the reference's train_camn_audio.py:91-116):
+    the ground truth's first frames seed the model. Losses: loss (= all_loss)."""
+    cfg = model.config
+    dtype = compute_dtype_of(compute_dtype)
+
+    def loss_fn(batch, iteration):
+        rot6d = _rot6d(batch["motion"])
+        params = compute_params(model, dtype)
+        with dropout_rng(DropoutRng(step_seed(seed, iteration), rot6d.device)):
+            pred = call(model, params, _cast(dtype, batch["audio"]), _speaker(batch),
+                        seed_frames=cfg.seed_frames, seed_motion=_cast(dtype, rot6d),
+                        return_axis_angle=False)
+        loss = _geodesic(pred["motion"], rot6d)
+        return loss, {"loss": loss, "all_loss": loss}
+
+    return _make_step(model, optimizer, loss_fn, dtype)
+
+
+def _normalize_time(x: torch.Tensor) -> torch.Tensor:
+    """The reference's F.normalize(fea, dim=1): unit norm along time."""
+    return x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def make_disco_train_step(model: nn.Module, optimizer: TrainOptimizer,
+                          compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+    """DisCo's geodesic loss plus the rhythm and content contrastive losses on features
+    normalized along time (the reference's train_disco_audio.py:129-170). Losses: loss,
+    rhythm, content and their sum, all_loss."""
+    cfg = model.config
+    dtype = compute_dtype_of(compute_dtype)
+
+    def loss_fn(batch, iteration):
+        rot6d = _rot6d(batch["motion"])
+        params = compute_params(model, dtype)
+        with dropout_rng(DropoutRng(step_seed(seed, iteration), rot6d.device)):
+            pred = call(model, params, _cast(dtype, batch["audio"]), _speaker(batch),
+                        seed_frames=cfg.seed_frames, seed_motion=_cast(dtype, rot6d),
+                        return_axis_angle=False)
+        losses = {"loss": _geodesic(pred["motion"], rot6d)}
+        losses["rhythm"] = contrastive_loss(_normalize_time(pred["audio_fea_r"].float()),
+                                            batch["rhythm_label"])
+        losses["content"] = contrastive_loss(_normalize_time(pred["audio_fea_c"].float()),
+                                             batch["content_label"])
+        losses["all_loss"] = sum(losses.values())
+        return losses["all_loss"], losses
+
+    return _make_step(model, optimizer, loss_fn, dtype)
+
+
+__all__ = [
+    "BN_BUFFER_KEYS",
+    "call",
+    "compute_params",
+    "make_camn_train_step",
+    "make_disco_train_step",
+    "make_emage_train_step",
+    "mask_ratio_schedule",
+    "step_seed",
+]

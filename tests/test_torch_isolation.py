@@ -78,7 +78,10 @@ for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.d
              "serve", "serve_http", "cli.serve", "cli.bench_stream", "bench", "entry",
              "utils.device", "core.smplx", "core.motion_rep", "data.preprocess",
              "eval.dsp", "eval.metrics", "eval.mertic", "eval.fgd_encoder", "eval.pipeline",
-             "eval.test_flow", "cli.evaluate"):
+             "eval.test_flow", "cli.evaluate", "train.losses", "train.optim", "train.steps",
+             "train.ckpt", "train.loop", "train.logging", "utils.config", "data.beat2",
+             "data.device_data", "cli._train_common", "cli.train_camn", "cli.train_disco",
+             "cli.train_emage"):
     assert "pantomatrix_tpu_torch." + want in names, names
 assert not loaded, loaded
 """
