@@ -82,7 +82,8 @@ Phases, each of which raises on failure (nothing is caught):
      evaluate_clips on the card against the CPU (FGD, L1div, LVD, MSE within 1e-4
      relative, BC equal). It writes outputs/chip_smoke_eval.json;
  18. training: (a) K2 under autograd (ops/lstm_cuda.LstmLayerFunction) at the K2 test
-     shapes and the CaMN training shape (64, 64, 512): the forward bitwise equal to
+     shapes, the CaMN training shape (64, 64, 512) and cli.bench_train's (128, 64, 512)
+     (phase 19e): the forward bitwise equal to
      lstm_bidirectional, the x_proj and w_hh gradients equal to the plain version's
      autograd (1e-6) and no further from a float64 run than twice the plain fp32
      gradients plus 1e-6; CUDA-event ms of the forward, the recompute backward, a layer
@@ -98,7 +99,28 @@ Phases, each of which raises on failure (nothing is caught):
      --random_vq) at the shipped configs on a synthetic BEAT2 with the device-resident
      loader, a resume of the CaMN run from its last.bin continuing at step 5, and the
      device-resident batches bitwise equal to the host loader's on the card. It writes
-     outputs/chip_smoke_train.json.
+     outputs/chip_smoke_train.json;
+ 19. tokenizer pretraining and data preparation: (a) a synthetic BEAT2 of 8 takes of 20 s
+     (scripts/torch_make_synth_beat2.py's takes) and a synthetic SMPL-X archive at the real
+     shapes; python's cli.preprocess index (64- and 128-frame clips), footcontact on the
+     card and disco (the port's k-means); foot contact on the card equal to the CPU's but
+     at frames whose float64 velocity lies within 1e-6 relative of the threshold (counted
+     and reported); (b) one SGD step of a tiny tokenizer suite with dead-code restarts
+     from the same usage state on the CPU and on the card: losses 1e-5 relative,
+     parameters 1e-4, dead masks equal, usage within 1e-7; (c) 20 Adam steps at the
+     shipped learning rate of the five tokenizers at init_vq_suite widths on one batch of
+     64 x 64 frames, restarts on, in fp32 and bf16: finite losses, the last below the
+     first, K1 and K2 never launched; median ms a step, peak memory, kernels a step and
+     device ms of one profiled step; (d) cli.train_emage_vq --debug on the corpus on the
+     card: the export's five directories, no K1 launch in its validation (the round trip
+     decodes from indices, as the JAX CLI's does; launches_vq_val = 0), the exported
+     suite decoding bitwise as its best-val state, then cli.train_emage --vq_path on the
+     export, where K1 launches exactly once per val batch per validation (the face decoded
+     from its latent head; launches_train_emage_val), and K1 against its plain version at
+     that run's val batch shapes; (e) cli.bench_train for the three
+     families in fp32 and bf16 at --k 3 --repeats 2: each line parses, mfu < 1, K2 8
+     (CaMN) / 4 (DisCo) / 0 launches a step, K1 none. It writes
+     outputs/chip_smoke_pretrain.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -134,6 +156,9 @@ K1_SHAPES = [
     # evaluation at batch 1: the AR window and remainder window of a take, and the VQ
     # round trip and final decode of a 64 s take
     (64, 256, 256), (60, 256, 256), (1920, 256, 256),
+    # train_emage's validation at the shipped train_bs 56 x 64 frames (the face decoded
+    # from its latent head); phase 19d also checks the val batches of its own run
+    (56 * 64, 256, 256),
 ]
 K1_HEADLINE = (128 * 1800, 256, 256)
 # (T, B, H): the K2 tests' shapes and edge shapes of the launch plan (one row, ragged
@@ -142,7 +167,8 @@ K1_HEADLINE = (128 * 1800, 256, 256)
 # per-step latency floor
 K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
                   (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512)]
-K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512), (960, 1, 512)]
+K2_BENCH_SHAPE = (128, 64, 512)  # cli.bench_train's CaMN/DisCo batch: 64 x 128 frames
+K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512), (960, 1, 512), K2_BENCH_SHAPE]
 K2_FLOOR_SHAPE = (421, 1, 512)
 K2_HEADLINE = (421, 64, 512)
 K2_ATOL = 1e-5
@@ -262,35 +288,7 @@ def phase_k1(device):
             lead = lead if isinstance(lead, tuple) else (lead,)
             z = torch.randn(*lead, d, generator=g).to(device)
             cb = torch.randn(k, d, generator=g).to(device)
-            got, again = vq_cuda.nearest_code(z, cb), vq_cuda.nearest_code(z, cb)
-            want = vq_cuda.nearest_code_plain(z, cb)
-            model = vq_cuda.nearest_code_split_plain(z, cb)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != torch.int32:
-                raise AssertionError(f"K1 {shape}: {got.shape}/{got.dtype} vs {want.shape}")
-            if not torch.equal(got, again):
-                raise AssertionError(f"K1 {shape}: two calls differ")
-            # rows that differ must be genuine near-ties: their two codes' distances,
-            # recomputed in float64, within 1e-5 relative; and under 0.1% of rows
-            z64, cb64 = z.reshape(-1, d).double(), cb.double()
-            n = z64.shape[0]
-            dist = lambda idx: ((z64 - cb64[idx.reshape(-1).long()]) ** 2).sum(-1)
-            d_got, d_want = dist(got), dist(want)
-            gap = (d_got - d_want).abs()
-            differ = (got.reshape(-1) != want.reshape(-1))
-            n_diff = int(differ.sum())
-            rel = (gap / d_want.abs().clamp_min(1e-30))[differ]
-            if n_diff and (float(rel.max()) >= 1e-5 or n_diff >= 1e-3 * n):
-                raise AssertionError(f"K1 {shape}: {n_diff} rows differ, max rel gap "
-                                     f"{float(rel.max())}")
-            plan = vq_cuda.plan_search(n, d, k, torch.cuda.get_device_properties(
-                device).multi_processor_count)
-            row = {"shape": [n, d, k], "mismatches": n_diff, "max_abs_err": float(gap.max()),
-                   "split_model_mismatches": int((got != model).sum()),
-                   "bitwise_repeatable": True,
-                   "plan": {"cluster": plan.cluster, "ctas": plan.ctas,
-                            "codes_per_cta": plan.codes_per_cta,
-                            "smem_bytes": plan.smem_bytes}}
+            row = k1_check(z, cb, device)
             if len(lead) == 1:
                 zc, cbc = z.contiguous(), cb.contiguous()
                 kernel = lambda: vq_cuda.nearest_code(zc, cbc)
@@ -299,11 +297,50 @@ def phase_k1(device):
                 row["call_ms"] = cuda_ms(kernel)
                 row["plain_ms"] = graph_ms(lambda: vq_cuda.nearest_code_plain(zc, cbc))
                 row["library_ms"] = graph_ms(lambda: torch.cdist(zc, cbc).argmin(-1))
-                row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = k1_bound(n, d, k)
+                row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = k1_bound(*row["shape"])
                 row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
             rows.append(row)
             log(f"K1 vq_nearest_code {row}")
     return rows
+
+
+def k1_check(z, cb, device) -> dict:
+    """K1 on ``z`` (..., D) and ``cb`` (K, D) against its plain version: int32 indices of
+    the right shape, two calls bitwise equal, and rows that differ only genuine near-ties
+    (their two codes' distances within 1e-5 relative in float64) and under 0.1% of rows."""
+    from pantomatrix_tpu_torch.ops import vq_cuda
+
+    k, d = cb.shape
+    shape = tuple(z.shape[:-1]), d, k
+    got, again = vq_cuda.nearest_code(z, cb), vq_cuda.nearest_code(z, cb)
+    want = vq_cuda.nearest_code_plain(z, cb)
+    model = vq_cuda.nearest_code_split_plain(z, cb)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.int32:
+        raise AssertionError(f"K1 {shape}: {got.shape}/{got.dtype} vs {want.shape}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K1 {shape}: two calls differ")
+    # rows that differ must be genuine near-ties: their two codes' distances,
+    # recomputed in float64, within 1e-5 relative; and under 0.1% of rows
+    z64, cb64 = z.reshape(-1, d).double(), cb.double()
+    n = z64.shape[0]
+    dist = lambda idx: ((z64 - cb64[idx.reshape(-1).long()]) ** 2).sum(-1)
+    d_got, d_want = dist(got), dist(want)
+    gap = (d_got - d_want).abs()
+    differ = (got.reshape(-1) != want.reshape(-1))
+    n_diff = int(differ.sum())
+    rel = (gap / d_want.abs().clamp_min(1e-30))[differ]
+    if n_diff and (float(rel.max()) >= 1e-5 or n_diff >= 1e-3 * n):
+        raise AssertionError(f"K1 {shape}: {n_diff} rows differ, max rel gap "
+                             f"{float(rel.max())}")
+    plan = vq_cuda.plan_search(n, d, k, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    return {"shape": [n, d, k], "mismatches": n_diff, "max_abs_err": float(gap.max()),
+            "split_model_mismatches": int((got != model).sum()),
+            "bitwise_repeatable": True,
+            "plan": {"cluster": plan.cluster, "ctas": plan.ctas,
+                     "codes_per_cta": plan.codes_per_cta,
+                     "smem_bytes": plan.smem_bytes}}
 
 
 def tiny_models(device):
@@ -1241,6 +1278,31 @@ EVAL_METRIC_RTOL = 1e-4
 EVAL_EXPR_ATOL = 1e-4
 
 
+def write_smplx_archive(archive: Path, rng) -> Path:
+    """A synthetic SMPLX_NEUTRAL_2020.npz at the real archive's shapes (V = 10475, F =
+    20908, the SMPL-X kinematic tree), drawn from ``rng``."""
+    from pantomatrix_tpu_torch.eval.fgd_encoder import SMPLX_PARENTS
+
+    v, f = SMPLX_V, SMPLX_F
+    kintree = np.zeros((2, 55), np.int64)
+    kintree[0] = [2**32 - 1] + list(SMPLX_PARENTS[1:])
+    kintree[1] = np.arange(55)
+    jreg = np.abs(rng.normal(0, 1, (55, v))).astype(np.float32)
+    weights = np.abs(rng.normal(0, 1, (v, 55))).astype(np.float32)
+    bary = rng.uniform(0.1, 1, (51, 3))
+    np.savez(archive, v_template=rng.normal(0, 0.3, (v, 3)).astype(np.float32),
+             shapedirs=rng.normal(0, 0.01, (v, 3, 400)).astype(np.float32),
+             posedirs=rng.normal(0, 0.01, (v, 3, 486)).astype(np.float32),
+             J_regressor=jreg / jreg.sum(1, keepdims=True), kintree_table=kintree,
+             weights=weights / weights.sum(1, keepdims=True),
+             hands_meanl=rng.normal(0, 0.1, 45).astype(np.float32),
+             hands_meanr=rng.normal(0, 0.1, 45).astype(np.float32),
+             f=rng.randint(0, v, (f, 3)).astype(np.int64),
+             lmk_faces_idx=rng.randint(0, f, 51).astype(np.int64),
+             lmk_bary_coords=(bary / bary.sum(1, keepdims=True)).astype(np.float32))
+    return archive
+
+
 def write_eval_data(root: Path) -> dict:
     """Everything phase 17 reads, from numpy and torch seeds: a BEAT2 layout (speaker 2,
     EVAL_TAKES test takes of EVAL_SECONDS s), a synthetic SMPL-X archive at the real
@@ -1248,7 +1310,7 @@ def write_eval_data(root: Path) -> dict:
     under a working directory, and full-width checkpoints of the three families."""
     from pantomatrix_tpu_torch.cli.test_emage import load_models
     from pantomatrix_tpu_torch.data.preprocess import build_clip_index
-    from pantomatrix_tpu_torch.eval.fgd_encoder import SMPLX_PARENTS, AESKConv
+    from pantomatrix_tpu_torch.eval.fgd_encoder import AESKConv
     from pantomatrix_tpu_torch.io.hf_checkpoint import save_checkpoint
     from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
     from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
@@ -1281,24 +1343,7 @@ def write_eval_data(root: Path) -> dict:
         rows.append(f"{vid},test")
     (beat2 / "train_test_split.csv").write_text("\n".join(rows) + "\n")
 
-    v, f = SMPLX_V, SMPLX_F
-    kintree = np.zeros((2, 55), np.int64)
-    kintree[0] = [2**32 - 1] + list(SMPLX_PARENTS[1:])
-    kintree[1] = np.arange(55)
-    jreg = np.abs(rng.normal(0, 1, (55, v))).astype(np.float32)
-    weights = np.abs(rng.normal(0, 1, (v, 55))).astype(np.float32)
-    bary = rng.uniform(0.1, 1, (51, 3))
-    archive = root / "SMPLX_NEUTRAL_2020.npz"
-    np.savez(archive, v_template=rng.normal(0, 0.3, (v, 3)).astype(np.float32),
-             shapedirs=rng.normal(0, 0.01, (v, 3, 400)).astype(np.float32),
-             posedirs=rng.normal(0, 0.01, (v, 3, 486)).astype(np.float32),
-             J_regressor=jreg / jreg.sum(1, keepdims=True), kintree_table=kintree,
-             weights=weights / weights.sum(1, keepdims=True),
-             hands_meanl=rng.normal(0, 0.1, 45).astype(np.float32),
-             hands_meanr=rng.normal(0, 0.1, 45).astype(np.float32),
-             f=rng.randint(0, v, (f, 3)).astype(np.int64),
-             lmk_faces_idx=rng.randint(0, f, 51).astype(np.int64),
-             lmk_bary_coords=(bary / bary.sum(1, keepdims=True)).astype(np.float32))
+    archive = write_smplx_archive(root / "SMPLX_NEUTRAL_2020.npz", rng)
 
     work = root / "work"
     (work / "emage_evaltools").mkdir(parents=True)
@@ -1623,8 +1668,8 @@ def phase_train_k2(card):
     g = torch.Generator().manual_seed(18)
     rows = []
     with strict_fp32():
-        for t, b, h in K2_TEST_SHAPES + [TRAIN_K2_SHAPE]:
-            if (t, b, h) == TRAIN_K2_SHAPE:
+        for t, b, h in K2_TEST_SHAPES + [TRAIN_K2_SHAPE, K2_BENCH_SHAPE]:
+            if (t, b, h) in (TRAIN_K2_SHAPE, K2_BENCH_SHAPE):
                 # a CaMN inner layer: torch-default weights, N(0, 1) input of width 2H
                 bound = h ** -0.5
                 u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * bound).cuda()
@@ -1897,6 +1942,375 @@ def phase_train(card):
     return result
 
 
+PREP_TAKES = {"train": 6, "val": 1, "test": 1}  # phase 19's corpus: 8 takes of 20 s
+PREP_FRAMES = 20 * 30
+FOOT_THRESHOLD = 0.01
+FOOT_NEAR_REL = 1e-6  # a float64 velocity this close (relative) to the threshold: a near-tie
+VQ_CELL = (64, 64)  # the shipped emage_vq.yaml: train_bs 64, pose_length 64
+VQ_STEPS = 20
+VQ_LR = 2e-4  # the shipped learning rate
+VQ_TINY = dict(vae_length=16, vae_codebook_size=16)
+VQ_PARAM_ATOL = 1e-4
+BENCH_K, BENCH_REPEATS = 3, 2
+BENCH_K2 = {"camn": 8, "disco": 4, "emage": 0}
+
+
+def load_script(name: str):
+    """A script of ``scripts/`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, HERE / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quiet_main(main, argv) -> str:
+    """``main(argv)`` with its standard output captured and returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def phase_prep(card, root: Path):
+    """19a. A synthetic BEAT2 (scripts/torch_make_synth_beat2.py's takes) and an SMPL-X
+    archive at the real shapes; cli.preprocess index, footcontact on the card and disco;
+    foot contact on the card against the CPU's."""
+    import os
+
+    from pantomatrix_tpu_torch.cli import preprocess as cli
+    from pantomatrix_tpu_torch.core.smplx import SmplxModel, load_smplx, read_smplx
+    from pantomatrix_tpu_torch.data import preprocess
+
+    t0 = time.time()
+    beat2 = root / "beat2"
+    load_script("torch_make_synth_beat2").write_layout(
+        str(beat2), PREP_TAKES["train"], PREP_TAKES["val"], PREP_TAKES["test"], 8, PREP_FRAMES,
+        PREP_FRAMES, 19)
+    archive = write_smplx_archive(root / "SMPLX_NEUTRAL_2020.npz", np.random.RandomState(19))
+    result = {"takes": sum(PREP_TAKES.values()), "take_seconds": PREP_FRAMES / 30,
+              "write_s": time.time() - t0}
+    index = lambda n: quiet_main(cli.main, ["index", "--beat2_root", str(beat2), "--output_dir",
+                                            str(root / "data_json"), "--length", str(n)]).strip()
+    metas = {64: index(64), 128: index(128)}
+    motion = str(beat2 / "smplxflame_30")
+    before = os.environ.get("SMPLX_MODEL_PATH")
+    os.environ["SMPLX_MODEL_PATH"] = str(archive)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet_main(cli.main, ["footcontact", "--motion_dir", motion, "--output_dir",
+                              str(beat2 / "footcontact"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        result["footcontact_card_s"] = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("SMPLX_MODEL_PATH")
+        else:
+            os.environ["SMPLX_MODEL_PATH"] = before
+    t0 = time.perf_counter()
+    cpu = preprocess.extract_foot_contact(motion, str(root / "footcontact_cpu"),
+                                          model=load_smplx(str(archive), "cpu"))
+    result["footcontact_cpu_s"] = time.perf_counter() - t0
+    exact, exempt, values, contact = None, 0, 0, 0.0
+    for path in cpu:
+        name = Path(path).name
+        got, want = np.load(beat2 / "footcontact" / name), np.load(path)
+        values += got.size
+        contact += float(got.sum())
+        differ = got != want
+        if differ.any():
+            if exact is None:
+                exact = SmplxModel.from_numpy(read_smplx(str(archive)), "cpu", torch.float64)
+            v64 = preprocess.foot_velocities(exact, *preprocess.read_take(
+                os.path.join(motion, name.replace(".npy", ".npz"))))
+            near = np.abs(v64 - FOOT_THRESHOLD) <= FOOT_NEAR_REL * FOOT_THRESHOLD
+            if (differ & ~near).any():
+                raise AssertionError(f"foot contact {name}: card and CPU differ away from the "
+                                     f"threshold at {np.argwhere(differ & ~near)[:5].tolist()}")
+            exempt += int(differ.sum())
+    t0 = time.perf_counter()
+    disco = quiet_main(cli.main, ["disco", "--json", metas[128]]).strip()
+    result["disco_s"] = time.perf_counter() - t0
+    labels = json.loads(Path(disco).read_text())
+    if not all(0 <= d["content_label"] < 10 and 0 <= d["rhythm_label"] < 10 for d in labels):
+        raise AssertionError("disco labels out of range")
+    result.update({
+        "footcontact_card_s_per_take": result["footcontact_card_s"] / len(cpu),
+        "footcontact_cpu_s_per_take": result["footcontact_cpu_s"] / len(cpu),
+        "footcontact_values": values, "contact_share": contact / values,
+        "near_threshold_exempt": exempt,
+        "clips": {str(n): len(json.loads(Path(m).read_text())) for n, m in metas.items()},
+        "disco_clips": len(labels), "smplx_vertices": SMPLX_V})
+    log(f"preprocess: {json.dumps(result)} | {card}")
+    return result, metas
+
+
+def tiny_vq_suite(device, seed: int = 19):
+    """The tiny tokenizer suite (codebooks of 16, vae_length 16, the global VAE at 24)."""
+    from pantomatrix_tpu_torch.models import configs, emage_vq
+
+    g = torch.Generator().manual_seed(seed)
+    part = lambda dim: emage_vq.EmageVQVAE(configs.EmageVQVAEConvConfig(
+        vae_test_dim=dim, **VQ_TINY), generator=g)
+    return emage_vq.EmageVQSuite(
+        face=part(106), upper=part(78), hands=part(180), lower=part(61),
+        global_motion=emage_vq.EmageVAE(configs.EmageVAEConvConfig(
+            vae_length=24, vae_test_dim=61), generator=g)).to(device)
+
+
+def phase_vq_parity():
+    """19b. One SGD step of the tiny suite with restarts, from the same usage state, on
+    the CPU and on the card (TF32 off)."""
+    from pantomatrix_tpu_torch.train.optim import make_optimizer
+    from pantomatrix_tpu_torch.train.steps import RestartingOptimizer, make_vq_train_step
+
+    k = VQ_TINY["vae_codebook_size"]
+    rng = np.random.RandomState(19)
+    usage = {p: rng.uniform(0, 2.0 / k, k).astype(np.float32)
+             for p in ("face", "upper", "hands", "lower")}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        suite = tiny_vq_suite(device)
+        opt = RestartingOptimizer(
+            make_optimizer(suite.parameters(), learning_rate=0.1, optimizer="sgd"),
+            {p: torch.tensor(u, device=device) for p, u in usage.items()})  # copies
+        step = make_vq_train_step(suite, opt, restart_dead_codes=True, restart_decay=0.9,
+                                  restart_thresh=0.5)
+        losses = step(train_batch("emage", 8, 8, device, seed=19), 1)
+        runs[device] = ({n: float(v) for n, v in losses.items()}, suite.state_dict(),
+                        {p: d.cpu() for p, d in opt.dead.items()},
+                        {p: u.cpu() for p, u in opt.usage.items()})
+    (lc, sc, dc, uc), (lg, sg, dg, ug) = runs["cpu"], runs["cuda"]
+    row = {"loss_max_rel_err": max(abs(lg[n] - lc[n]) / max(abs(lc[n]), 1e-30) for n in lc),
+           "param_max_abs_err": _state_err(sc, sg, list(sc)),
+           "dead_equal": all(torch.equal(dc[p], dg[p]) for p in dc),
+           "restarted": {p: int(d.sum()) for p, d in dc.items()},
+           "usage_max_abs_err": max(float((uc[p] - ug[p]).abs().max()) for p in uc),
+           "usage_bitwise": all(torch.equal(uc[p], ug[p]) for p in uc)}
+    if not (row["loss_max_rel_err"] <= TRAIN_LOSS_RTOL and row["param_max_abs_err"]
+            <= VQ_PARAM_ATOL and row["dead_equal"] and row["usage_max_abs_err"] <= 1e-7
+            and sum(row["restarted"].values()) > 0):
+        raise AssertionError(f"VQ step CPU vs card: {row}")
+    log(f"VQ step parity CPU vs card (tiny suite, restarts, one SGD step): {json.dumps(row)}")
+    return row
+
+
+def run_vq_cell(card, compute_dtype=None) -> dict:
+    """VQ_STEPS Adam steps with restarts at the shipped learning rate on one fixed batch of
+    VQ_CELL at the init_vq_suite widths, the codebooks initialized from the batch's
+    encoder outputs as the CLI does (from the reference's U(-1/K, 1/K) codebooks the
+    commitment losses climb for ~15 steps in both modes); then one step under
+    torch.profiler."""
+    from pantomatrix_tpu_torch.cli.train_emage_vq import data_init_codebooks
+    from pantomatrix_tpu_torch.models.api import EmageVQModel
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+    from pantomatrix_tpu_torch.train.optim import make_optimizer
+    from pantomatrix_tpu_torch.train.steps import (
+        RestartingOptimizer,
+        make_vq_train_step,
+        vq_usage_init,
+    )
+
+    suite = EmageVQModel.random(seed=42, device="cuda")
+    opt = RestartingOptimizer(make_optimizer(suite.parameters(), learning_rate=VQ_LR),
+                              vq_usage_init(suite))
+    step = make_vq_train_step(suite, opt, compute_dtype=compute_dtype, restart_dead_codes=True,
+                              seed=42)
+    bs, frames = VQ_CELL
+    batch = train_batch("emage", bs, frames, "cuda", seed=19)
+    data_init_codebooks(suite, [{n: v.cpu().numpy() for n, v in batch.items()}], seed=42)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_cuda.launches = vq_cuda.launches = 0
+    losses, walls = [], []
+    for i in range(VQ_STEPS):
+        t0 = time.perf_counter()
+        out = step(batch, i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append({n: float(v) for n, v in out.items()})
+    k1, k2 = vq_cuda.launches, lstm_cuda.launches
+    step_ms = 1e3 * float(np.median(walls[1:]))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(batch, VQ_STEPS)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    cell = {"mode": compute_dtype or "float32", "batch": bs, "frames": frames,
+            "steps": VQ_STEPS, "first_step_ms": 1e3 * walls[0], "median_step_ms": step_ms,
+            "frames_per_s": bs * frames / (step_ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kernels_a_step": len(kernels), "device_ms": device_ms,
+            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5]),
+            "idle_unprofiled": 1 - device_ms / step_ms, "k1_launches": k1, "k2_launches": k2,
+            "first_step_losses": losses[0],
+            "first_loss": losses[0]["all_loss"], "last_loss": losses[-1]["all_loss"],
+            "restarted": {p: sum(x[f"restarted_{p}"] for x in losses)
+                          for p in ("face", "upper", "hands", "lower")},
+            "last_perplexity": {p: losses[-1][f"ppl_{p}"]
+                                for p in ("face", "upper", "hands", "lower")}, "card": card}
+    finite = all(np.isfinite(v) for x in losses for v in x.values())
+    if not (finite and cell["last_loss"] < cell["first_loss"] and k1 == 0 and k2 == 0):
+        raise AssertionError(f"VQ step {cell['mode']}: finite={finite}, {cell}")
+    log(f"VQ train cell {json.dumps(cell)}")
+    del suite, opt, step, batch
+    torch.cuda.empty_cache()
+    return cell
+
+
+def run_cli_in_process(main, argv) -> float:
+    """``main()`` with ``sys.argv`` = ``argv`` and its standard output captured; its wall
+    seconds, the card synchronized."""
+    old = sys.argv
+    sys.argv = argv
+    try:
+        t0 = time.time()
+        quiet_main(lambda _: main(), None)
+        torch.cuda.synchronize()
+        return time.time() - t0
+    finally:
+        sys.argv = old
+
+
+def phase_vq_cli(card, root: Path, metas: dict) -> dict:
+    """19d. cli.train_emage_vq --debug on the corpus (its validation decodes from indices:
+    no K1), the export read back and decoded against the best-val state, and
+    cli.train_emage --vq_path on the export (K1 counted in its validation, and held
+    against its plain version at that validation's batch shapes)."""
+    from pantomatrix_tpu_torch.cli import train_emage, train_emage_vq
+    from pantomatrix_tpu_torch.data.beat2 import BEAT2Dataset, DataLoader
+    from pantomatrix_tpu_torch.models.api import EmageVQModel
+    from pantomatrix_tpu_torch.models.configs import EmageAudioConfig
+    from pantomatrix_tpu_torch.models.emage_vq import vq_decode
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+    from pantomatrix_tpu_torch.train.ckpt import load_train_state
+    from pantomatrix_tpu_torch.utils.config import load_config
+
+    val = BEAT2Dataset([metas[64]], "val", 30, 16000, None, variant="emage_footcontact")
+    data = [f"data.meta_paths=['{metas[64]}']", f"data.test_meta_paths=['{metas[64]}']",
+            "log_period=1"]
+    out = root / "vq"
+    lstm_cuda.launches = vq_cuda.launches = 0
+    wall = run_cli_in_process(train_emage_vq.main, [
+        "train_emage_vq", "--debug", "--device", "cuda", f"output_dir={out}", *data])
+    k1, k2 = vq_cuda.launches, lstm_cuda.launches
+    (exp,) = [p for p in out.iterdir() if p.is_dir()]
+    missing = [f"{n}/{f}" for n in ("face", "upper", "hands", "lower", "global")
+               for f in ("config.json", "model.safetensors")
+               if not (exp / "emage_vq" / n / f).exists()]
+    if missing or k1 != 0 or k2 != 0:
+        raise AssertionError(f"train_emage_vq --debug: missing {missing}, K1 {k1} (want 0: "
+                             f"the round trip decodes from indices), K2 {k2}")
+    live = EmageVQModel.random(seed=0, device="cuda")
+    best_step, _ = load_train_state(str(exp / "ckpt" / "best.bin"), live)
+    loaded = EmageVQModel.from_pretrained(str(exp), device="cuda")
+    g = torch.Generator().manual_seed(19)
+    idx = {f"{p}_index": torch.randint(0, 256, (2, 64), generator=g).cuda()
+           for p in ("upper", "hands", "lower")}
+    lat = torch.randn(2, 64, 256, generator=g).cuda()
+    ref = torch.zeros(2, 1, 3, device="cuda")
+    decode = lambda s: vq_decode(s, face_latent=lat, get_global_motion=True, ref_trans=ref,
+                                 **idx)
+    a, b = decode(live), decode(loaded)
+    if not all(torch.equal(a[n], b[n]) for n in a):
+        raise AssertionError("the exported suite decodes unlike the best-val state")
+
+    # cli.train_emage --vq_path at the shipped config, batch 8: its validation decodes
+    # the parts with a latent head and no index head through K1, once per val batch each
+    emage_out = root / "emage_on_vq"
+    cfg = EmageAudioConfig.from_dict(load_config(str(
+        HERE / "pantomatrix_tpu_torch" / "configs" / "emage_audio.yaml")).model.to_dict())
+    latent_parts = sum(getattr(cfg, "l" + p) > 0 and getattr(cfg, "c" + p) == 0
+                       for p in "fuhl")
+    val_sizes = [len(x["motion"]) for x in DataLoader(val, min(8, len(val)), shuffle=False)]
+    lstm_cuda.launches = vq_cuda.launches = 0
+    emage_wall = run_cli_in_process(train_emage.main, [
+        "train_emage", "--debug", "--vq_path", str(exp), "--device", "cuda",
+        "data.train_bs=8", f"output_dir={emage_out}", *data])
+    k1_emage = vq_cuda.launches
+    (emage_exp,) = [p for p in emage_out.iterdir() if p.is_dir()]
+    lines = [json.loads(x) for x in (emage_exp / "metrics.jsonl").read_text().splitlines()]
+    steps = [x["step"] for x in lines if "all" in x]  # train lines; val lines have val/metric
+    vals = [x["val/metric"] for x in lines if "val/metric" in x]
+    want_k1 = latent_parts * len(val_sizes) * len(vals)
+    if (steps != [1, 2, 3, 4] or len(vals) != 2 or not np.all(np.isfinite(vals))
+            or k1_emage != want_k1 or k1_emage == 0):
+        raise AssertionError(f"train_emage --vq_path: steps {steps}, val {vals}, K1 "
+                             f"{k1_emage} (want {want_k1})")
+    # K1 at the shapes that validation gave it: (val batch x 64 frames, 256) against
+    # the suite's 256-code books
+    k1_rows = []
+    with strict_fp32():
+        for n in sorted({bs * 64 for bs in val_sizes}):
+            row = k1_check(torch.randn(n, 256, generator=g).cuda(),
+                           torch.randn(256, 256, generator=g).cuda(), "cuda")
+            k1_rows.append(row)
+            log(f"K1 vq_nearest_code at train_emage's val batch {row}")
+    result = {"wall_s": wall, "launches_vq_val": k1, "best_step": best_step,
+              "export_decodes_equal": True,
+              "train_emage_on_export": {"wall_s": emage_wall, "steps": steps,
+                                        "val_metric": vals, "val_batch_sizes": val_sizes,
+                                        "launches_train_emage_val": k1_emage,
+                                        "k1_by_shape": k1_rows},
+              "card": card}
+    log(f"CLI train_emage_vq --debug: {json.dumps(result)}")
+    return result
+
+
+def phase_bench_train(card) -> list:
+    """19e. cli.bench_train for the three families in fp32 and bf16 at --k BENCH_K,
+    --repeats BENCH_REPEATS: each line parses, mfu < 1, K2 8 / 4 / 0 a step, K1 none."""
+    import gc
+
+    from pantomatrix_tpu_torch.cli import bench_train
+
+    rows = []
+    for family in ("camn", "disco", "emage"):
+        for dtype in ("float32", "bfloat16"):
+            text = quiet_main(bench_train.main, [
+                "--family", family, "--dtype", dtype, "--k", str(BENCH_K), "--repeats",
+                str(BENCH_REPEATS)])
+            line = json.loads(text.strip().splitlines()[-1])
+            log(f"bench_train {text.strip().splitlines()[-1]}")
+            if not (line["mfu"] < 1 and line["k2_launches_per_step"] == BENCH_K2[family]
+                    and line["k1_launches"] == 0 and line["card"] == card):
+                raise AssertionError(f"bench_train {family} {dtype}: {line}")
+            rows.append(line)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_pretrain(card):
+    """19. Tokenizer pretraining and data preparation."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        result = {"card": card}
+        result["preprocess"], metas = phase_prep(card, root)
+        result["vq_parity"] = phase_vq_parity()
+        result["vq_cells"] = [run_vq_cell(card, mode) for mode in (None, "bfloat16")]
+        fp32, bf16 = (c["first_loss"] for c in result["vq_cells"])
+        result["vq_bf16_first_loss_rel"] = abs(bf16 - fp32) / abs(fp32)
+        if not result["vq_bf16_first_loss_rel"] < 0.02:  # the train tests' bf16 bound
+            raise AssertionError(f"VQ step bf16 first loss {bf16} against fp32 {fp32}")
+        result["vq_cli"] = phase_vq_cli(card, root, metas)
+    result["bench_train"] = phase_bench_train(card)
+    result["seconds"] = time.time() - t0
+    log(f"pretraining phase: {result['seconds']:.1f} s")
+    return result
+
+
 def main():
     t_all = time.time()
     # 1. device
@@ -1954,8 +2368,12 @@ def main():
     # 18. training (counts K2 launches on its own paths)
     training = phase_train(card)
     (out_dir / "chip_smoke_train.json").write_text(json.dumps(training, indent=1))
+    # 19. tokenizer pretraining and data preparation (counts K1 and K2 on its own paths)
+    pretrain = phase_pretrain(card)
+    (out_dir / "chip_smoke_pretrain.json").write_text(json.dumps(pretrain, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
+    k1_rows = k1_rows + pretrain["vq_cli"]["train_emage_on_export"]["k1_by_shape"]
     kernels = [{
         "name": "vq_nearest_code",
         "route": "cuda",
@@ -1979,6 +2397,10 @@ def main():
         "launches_evaluation": {
             f"{k} per {EVAL_SECONDS} s take": evaluation["launches_per_take"][k]
             for k in ("emage", "vq_roundtrip")},
+        "launches_vq_val": pretrain["vq_cli"]["launches_vq_val"],
+        "launches_train_emage_val": pretrain["vq_cli"]["train_emage_on_export"][
+            "launches_train_emage_val"],
+        "launches_vq_train_step": {c["mode"]: c["k1_launches"] for c in pretrain["vq_cells"]},
     }]
     head = next(r for r in k2_rows
                 if tuple(r["shape"]) == K2_HEADLINE and r["directions"] == 2)
@@ -2009,6 +2431,8 @@ def main():
                               and c["family"] != "emage"},
         "training": next(r for r in training["k2_autograd"]
                          if tuple(r["shape"]) == TRAIN_K2_SHAPE),
+        "launches_bench_train": {f"{r['family']} {r['dtype']} step": r["k2_launches_per_step"]
+                                 for r in pretrain["bench_train"] if r["family"] != "emage"},
     })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

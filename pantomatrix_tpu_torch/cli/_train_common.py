@@ -235,7 +235,8 @@ def run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn) -
     loader, place_batch = maybe_device_resident(cfg, train_loader, device)
     try:
         run_training(loop_config(cfg), step_fn, model, optimizer, loader, place_batch,
-                     val_fn=val_fn, model_config=model.config, log_fn=log_fn, test_fn=test_fn)
+                     val_fn=val_fn, model_config=getattr(model, "config", None), log_fn=log_fn,
+                     test_fn=test_fn)
     finally:
         finish()
 

@@ -54,7 +54,8 @@ EXTRA_JOINT_NAMES = [
 
 @dataclass(frozen=True, eq=False)
 class SmplxModel:
-    """An SMPL-X body as float32 tensors on one device; the topology stays on the host."""
+    """An SMPL-X body as float32 tensors (float64 for a reference) on one device; the
+    topology stays on the host."""
 
     v_template: torch.Tensor   # (V, 3)
     shapedirs: torch.Tensor    # (V, 3, NUM_BETAS) shape blendshapes
@@ -77,10 +78,11 @@ class SmplxModel:
         return self.v_template.device
 
     @classmethod
-    def from_numpy(cls, arrays: Dict[str, np.ndarray], device) -> "SmplxModel":
-        """``read_smplx``'s arrays as a model on ``device``."""
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], device,
+                   dtype: torch.dtype = torch.float32) -> "SmplxModel":
+        """``read_smplx``'s arrays as a model on ``device``, in ``dtype``."""
         dev = torch.device(device)
-        tensor = lambda k: torch.as_tensor(np.ascontiguousarray(arrays[k], np.float32),
+        tensor = lambda k: torch.as_tensor(np.ascontiguousarray(arrays[k]), dtype=dtype,
                                            device=dev)
         return cls(
             v_template=tensor("v_template"), shapedirs=tensor("shapedirs"),

@@ -40,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.rotations import axis_angle_to_rotation_6d, rotation_6d_to_matrix
-from ..models.emage_vq import EmageVQSuite, vq_map2index, vq_map2latent
+from ..models.emage_vq import PARTS, EmageVQSuite, vq_map2index, vq_map2latent, vq_split_inputs
 from ..nn.layers import (
     BatchNorm1d,
     DropoutRng,
@@ -306,6 +306,149 @@ def make_disco_train_step(model: nn.Module, optimizer: TrainOptimizer,
     return _make_step(model, optimizer, loss_fn, dtype)
 
 
+def vq_global_vae_target(lower_stream: torch.Tensor) -> torch.Tensor:
+    """The global-translation VAE's training target: the 61-d lower stream with the
+    translation slots [54:57] replaced by (x velocity, y height, z velocity), the
+    velocity the forward difference at 30 fps with the last frame repeated, which
+    ``velocity2position`` integrates back to the absolute translation (the channels
+    ``vq_get_global_motion`` reads)."""
+    pos = lower_stream[:, :, 54:57]
+    vel = (pos[:, 1:] - pos[:, :-1]) * 30.0
+    vel = torch.cat([vel, vel[:, -1:]], dim=1)
+    v_xz = torch.cat([vel[:, :, 0:1], pos[:, :, 1:2], vel[:, :, 2:3]], dim=2)
+    return torch.cat([lower_stream[:, :, :54], v_xz, lower_stream[:, :, 57:]], dim=2)
+
+
+def vq_usage_init(suite: EmageVQSuite) -> Dict[str, torch.Tensor]:
+    """The initial per-code usage EMA of the dead-code restarts: 1/K for every code, so
+    each starts with a full grace window (~350 steps at decay 0.99, threshold 0.03)."""
+    out = {}
+    for part in PARTS:
+        weight = getattr(suite, part).quantizer.embedding.weight
+        k = weight.shape[0]
+        out[part] = torch.full((k,), 1.0 / k, dtype=torch.float32, device=weight.device)
+    return out
+
+
+class RestartingOptimizer:
+    """A :class:`TrainOptimizer` with the dead-code restarts' per-code usage EMA
+    (``usage``, {part: (K,) float32}): the JAX step's ``(opt_state, usage)`` state. Its
+    ``state_dict`` holds both, so a checkpoint resumes the restarts where they were.
+    ``dead`` holds the last step's restart masks."""
+
+    def __init__(self, optimizer: TrainOptimizer, usage: Dict[str, torch.Tensor]):
+        self.optimizer = optimizer
+        self.usage = usage
+        self.dead: Dict[str, torch.Tensor] = {}
+
+    @property
+    def lr(self) -> float:
+        return self.optimizer.lr
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad()
+
+    def step(self) -> None:
+        self.optimizer.step()
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(),
+                "usage": {k: v.detach().cpu() for k, v in self.usage.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        for k, v in state["usage"].items():
+            self.usage[k].copy_(v)
+
+
+def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[str] = None,
+                       vel_weight: float = 1.0, restart_dead_codes: bool = False,
+                       restart_decay: float = 0.99, restart_thresh: float = 0.03,
+                       seed: int = 0) -> Step:
+    """Pretrain the five EMAGE tokenizers jointly (the JAX ``make_vq_train_step``).
+
+    Per part VQ-VAE (face, upper, hands, lower): ``rec_{part}``, the MSE on the part
+    stream; ``vel_{part}``, the first-difference MSE, weighted by ``vel_weight``;
+    ``emb_{part}``, the quantizer's codebook and commitment loss (straight-through,
+    ``nn/vq.py``); ``ppl_{part}``, the perplexity, logged only. The global VAE trains
+    on ``vq_global_vae_target(lower)`` with the same two reconstruction terms
+    (``rec_global``, ``vel_global``). ``all_loss`` is their sum. The streams are
+    ``vq_split_inputs`` of the motion's rot6d, the expressions, foot contact and trans.
+
+    ``restart_dead_codes``: ``optimizer`` is a :class:`RestartingOptimizer`. After the
+    update, per part, ``u = decay * usage + (1 - decay) * counts / max(sum(counts), 1)``
+    from the step's code counts; codes with ``u < thresh / K`` are dead: their codebook
+    rows become rows of the batch's detached float32 encoder outputs, picked by a CPU
+    generator seeded from (seed, iteration, part) (the same picks on every device; not
+    ``jax.random``'s), their usage is reset to 1/K, and ``restarted_{part}`` counts
+    them. The optimizer's moments of a restarted row are left as they are, as in the
+    JAX step."""
+    dtype = compute_dtype_of(compute_dtype)
+    if restart_dead_codes and not isinstance(optimizer, RestartingOptimizer):
+        raise TypeError("restart_dead_codes needs RestartingOptimizer(optimizer, "
+                        "vq_usage_init(suite))")
+    aux: Dict[str, tuple] = {}
+
+    def rec_terms(losses, rec, target, name):
+        rec = rec.float()
+        r = ((rec - target) ** 2).mean()
+        v = (((rec[:, 1:] - rec[:, :-1]) - (target[:, 1:] - target[:, :-1])) ** 2).mean()
+        losses[f"rec_{name}"], losses[f"vel_{name}"] = r, v
+        return r + vel_weight * v
+
+    def loss_fn(batch, iteration):
+        streams = vq_split_inputs(_rot6d(batch["motion"]), batch["expressions"],
+                                  batch["foot_contact"], batch["trans"])
+        params = compute_params(suite, dtype)
+        losses: Dict[str, torch.Tensor] = {}
+        total = torch.zeros((), device=batch["motion"].device)
+        for part in PARTS:
+            x = streams[part]
+            out = call(getattr(suite, part), sub_params(params, part), _cast(dtype, x))
+            emb = out["embedding_loss"].float()
+            losses[f"emb_{part}"] = emb
+            losses[f"ppl_{part}"] = out["perplexity"].float()
+            total = total + rec_terms(losses, out["rec_pose"], x, part) + emb
+            if restart_dead_codes:
+                z = out["pre_latent"].detach().float()
+                k = getattr(suite, part).quantizer.embedding.weight.shape[0]
+                counts = torch.bincount(out["indices"].reshape(-1).long(), minlength=k)
+                aux[part] = (counts.float(), z.reshape(-1, z.shape[-1]))
+        g_rec = call(suite.global_motion, sub_params(params, "global_motion"),
+                     _cast(dtype, streams["lower"]))["rec_pose"]
+        total = total + rec_terms(losses, g_rec, vq_global_vae_target(streams["lower"]),
+                                  "global")
+        losses["all_loss"] = total
+        return total, losses
+
+    base = _make_step(suite, optimizer, loss_fn, dtype)
+    if not restart_dead_codes:
+        return base
+
+    @torch.no_grad()
+    def restart(losses, iteration):
+        seed0 = step_seed(seed, iteration)
+        for i, part in enumerate(PARTS):
+            counts, zpool = aux.pop(part)
+            weight = getattr(suite, part).quantizer.embedding.weight
+            k = weight.shape[0]
+            u = (restart_decay * optimizer.usage[part]
+                 + (1.0 - restart_decay) * (counts / counts.sum().clamp_min(1.0)))
+            dead = u < restart_thresh / k
+            g = torch.Generator().manual_seed(mix_seed(seed0, i))
+            pick = torch.randint(0, zpool.shape[0], (k,), generator=g).to(zpool.device)
+            weight.copy_(torch.where(dead[:, None], zpool[pick].to(weight.dtype), weight))
+            optimizer.usage[part].copy_(torch.where(dead, torch.full_like(u, 1.0 / k), u))
+            optimizer.dead[part] = dead
+            losses[f"restarted_{part}"] = dead.float().sum()
+        return losses
+
+    def step(batch: Dict[str, torch.Tensor], iteration: int) -> Dict[str, torch.Tensor]:
+        return restart(base(batch, iteration), iteration)
+
+    return step
+
+
 __all__ = [
     "BN_BUFFER_KEYS",
     "call",
@@ -313,6 +456,10 @@ __all__ = [
     "make_camn_train_step",
     "make_disco_train_step",
     "make_emage_train_step",
+    "make_vq_train_step",
     "mask_ratio_schedule",
+    "RestartingOptimizer",
     "step_seed",
+    "vq_global_vae_target",
+    "vq_usage_init",
 ]

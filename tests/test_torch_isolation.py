@@ -26,7 +26,10 @@ def _port_files():
              os.path.join(REPO, "scripts", "torch_profile_emage.py"),
              os.path.join(REPO, "scripts", "torch_profile_lstm.py"),
              os.path.join(REPO, "scripts", "torch_profile_k2_phases.py"),
-             os.path.join(REPO, "scripts", "torch_k1_sweep.py")]
+             os.path.join(REPO, "scripts", "torch_k1_sweep.py"),
+             os.path.join(REPO, "scripts", "torch_make_synth_beat2.py"),
+             os.path.join(REPO, "scripts", "torch_export_vq_suite.py"),
+             os.path.join(REPO, "scripts", "torch_vq_bound.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -62,6 +65,24 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     assert offenders == []
 
 
+def test_no_port_file_imports_scikit_learn():
+    """The GPU machine has no scikit-learn: the DisCo labels use the port's k-means."""
+    offenders = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n == "sklearn" or n.startswith("sklearn.")]
+    assert offenders == []
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = """
 import importlib, pkgutil, sys
@@ -81,7 +102,7 @@ for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.d
              "eval.test_flow", "cli.evaluate", "train.losses", "train.optim", "train.steps",
              "train.ckpt", "train.loop", "train.logging", "utils.config", "data.beat2",
              "data.device_data", "cli._train_common", "cli.train_camn", "cli.train_disco",
-             "cli.train_emage"):
+             "cli.train_emage", "cli.train_emage_vq", "cli.preprocess", "cli.bench_train"):
     assert "pantomatrix_tpu_torch." + want in names, names
 assert not loaded, loaded
 """
