@@ -89,7 +89,7 @@ Phases, each of which raises on failure (nothing is caught):
      gradients plus 1e-6; CUDA-event ms of the forward, the recompute backward, a layer
      with its projection, and cuDNN's nn.LSTM forward and forward + backward; (b) one SGD
      step (iteration 1, TF32 off) of tiny CaMN, DisCo and EMAGE on the CPU and on the
-     card: losses within 1e-5 relative, parameters 1e-4, BatchNorm buffers 1e-5; (c) 20
+     card: losses within 1e-5 relative, parameters 1e-4, BatchNorm buffers 1e-5; (c) 12
      Adam steps at the shipped learning rate on one fixed batch at full width,
      CamnAudioConfig() and DiscoAudioConfig() at 64 x 128 frames, EmageAudioConfig() at
      56 x 64 frames with random tokenizers, in fp32 and bf16: finite losses, the last
@@ -118,9 +118,23 @@ Phases, each of which raises on failure (nothing is caught):
      export, where K1 launches exactly once per val batch per validation (the face decoded
      from its latent head; launches_train_emage_val), and K1 against its plain version at
      that run's val batch shapes; (e) cli.bench_train for the three
-     families in fp32 and bf16 at --k 3 --repeats 2: each line parses, mfu < 1, K2 8
+     families in fp32 and bf16 at --k 2 --repeats 1: each line parses, mfu < 1, K2 8
      (CaMN) / 4 (DisCo) / 0 launches a step, K1 none. It writes
-     outputs/chip_smoke_pretrain.json.
+     outputs/chip_smoke_pretrain.json;
+ 20. visualization: (a) a synthetic SMPL-X archive at the real shapes whose faces join
+     neighbouring vertices of closed surfaces, and the g++ builds of native/rasterizer.cpp
+     and native/jpeg.cpp; (b) cli.test_emage and cli.test_camn --random_init
+     --visualization on one 20 s take on the card (600-frame skeleton AVIs read back; K1
+     and K2 launches counted, CaMN 8); (c) render_one_sequence (pred | GT) and
+     render_one_sequence_with_face of the take with its WAV: the FK vertices against the
+     CPU's (1e-4), the skeleton and mesh frames from the card's FK against the CPU's
+     (differing pixels counted, at most 0.1%), the JPEG coefficients of the card's DCT
+     against the CPU's (only +-1 at rounding near-ties, at most 1e-4 of them), each AVI
+     read back (600 frames, 320,000 audio samples, idx1 consistent); (d) ms a frame of
+     the FK, the drawing, the rasterizer, the JPEG transform on the card (and its copies
+     in and out) and its Huffman coding on the host, and the AVI writing; frames a second
+     end to end; host CPUs; peak host RSS and device memory. It writes
+     outputs/chip_smoke_viz.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -1600,7 +1614,7 @@ def phase_eval(card):
 # ---------------------------------------------------------------------------
 
 TRAIN_K2_SHAPE = (64, 64, 512)  # CaMN's shipped clip: 128 frames at 30 fps, read at 15
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12  # 20 until the smoke grew a visualization phase; cut to keep its time
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-4
 TRAIN_BUFFER_ATOL = 1e-5
@@ -1951,7 +1965,7 @@ VQ_STEPS = 20
 VQ_LR = 2e-4  # the shipped learning rate
 VQ_TINY = dict(vae_length=16, vae_codebook_size=16)
 VQ_PARAM_ATOL = 1e-4
-BENCH_K, BENCH_REPEATS = 3, 2
+BENCH_K, BENCH_REPEATS = 2, 1  # 3, 2 until the smoke grew a visualization phase
 BENCH_K2 = {"camn": 8, "disco": 4, "emage": 0}
 
 
@@ -2311,6 +2325,325 @@ def phase_pretrain(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# 20. visualization
+# ---------------------------------------------------------------------------
+VIZ_SECONDS = 20
+VIZ_FRAMES = VIZ_SECONDS * 30
+VIZ_FK_ATOL = 1e-4
+VIZ_PIXEL_SHARE = 1e-3  # frames from the card's FK against the CPU's: differing pixels
+VIZ_COEF_SHARE = 1e-4   # JPEG coefficients off by one (rounding near-ties), card vs CPU
+VIZ_CHUNK = 64
+
+
+def sphere_mesh(rings: int, segs: int, radii, centre):
+    """A closed UV sphere scaled to ``radii``: (rings * segs + 2, 3) vertices and
+    (2 * rings * segs, 3) faces, each between neighbouring vertices."""
+    th = np.pi * (np.arange(rings) + 1) / (rings + 1)
+    ph = 2 * np.pi * np.arange(segs) / segs
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph), np.cos(th)[:, None] * np.ones(segs),
+                     np.sin(th)[:, None] * np.sin(ph)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]]) * radii + centre
+    at = lambda r, c: 1 + r * segs + c % segs
+    south = rings * segs + 1
+    faces = [f for c in range(segs)
+             for f in ((0, at(0, c + 1), at(0, c)), (south, at(rings - 1, c), at(rings - 1, c + 1)))]
+    faces += [f for r in range(rings - 1) for c in range(segs)
+              for f in ((at(r, c), at(r, c + 1), at(r + 1, c)),
+                        (at(r, c + 1), at(r + 1, c + 1), at(r + 1, c)))]
+    return verts, np.asarray(faces, np.int64)
+
+
+def write_surface_archive(archive: Path, rng) -> Path:
+    """A synthetic SMPLX_NEUTRAL_2020.npz at the real shapes (V = 10475, F = 20908) whose
+    faces join neighbouring vertices of closed surfaces: a body-sized ellipsoid (100 x 104
+    grid, 10402 vertices, 20800 faces) and a head sphere (6 x 9, 56 vertices, 108 faces);
+    the 17 vertices left over sit on the head and no face uses them. The skinning is
+    smooth, as a body's is: each joint sits on a body vertex (spread over the surface) and
+    a vertex's weights fall off with its distance to the joints (Gaussian, 0.2 m); the
+    blend shapes are drawn from ``rng`` at 0.5 mm, so that they move a vertex by a few mm,
+    under the 10-18 mm between neighbours. (write_smplx_archive's random weights and 1 cm
+    blend shapes crumple the surface into slivers ~25 px long: a workload no body gives
+    the rasterizer.)"""
+    from pantomatrix_tpu_torch.eval.fgd_encoder import SMPLX_PARENTS
+
+    body_v, body_f = sphere_mesh(100, 104, np.array([0.22, 0.9, 0.14]), np.array([0, 0.9, 0]))
+    head_v, head_f = sphere_mesh(6, 9, np.array([0.1, 0.12, 0.1]), np.array([0, 1.9, 0]))
+    spare = np.repeat(head_v[:1], SMPLX_V - len(body_v) - len(head_v), axis=0)
+    verts = np.concatenate([body_v, head_v, spare]).astype(np.float32)
+    faces = np.concatenate([body_f, head_f + len(body_v)])
+    assert verts.shape == (SMPLX_V, 3) and faces.shape == (SMPLX_F, 3)
+    v = SMPLX_V
+    kintree = np.zeros((2, 55), np.int64)
+    kintree[0] = [2**32 - 1] + list(SMPLX_PARENTS[1:])
+    kintree[1] = np.arange(55)
+    jreg = np.zeros((55, v), np.float32)
+    jreg[np.arange(55), np.arange(55) * (len(body_v) // 55)] = 1.0
+    d2 = ((verts[:, None] - verts[np.arange(55) * (len(body_v) // 55)][None]) ** 2).sum(-1)
+    weights = np.exp(-d2 / (2 * 0.2 ** 2)).astype(np.float32) + 1e-6
+    bary = rng.uniform(0.1, 1, (51, 3))
+    np.savez(archive, v_template=verts,
+             shapedirs=rng.normal(0, 5e-4, (v, 3, 400)).astype(np.float32),
+             posedirs=rng.normal(0, 5e-4, (v, 3, 486)).astype(np.float32),
+             J_regressor=jreg, kintree_table=kintree,
+             weights=weights / weights.sum(1, keepdims=True),
+             hands_meanl=rng.normal(0, 0.1, 45).astype(np.float32),
+             hands_meanr=rng.normal(0, 0.1, 45).astype(np.float32), f=faces,
+             lmk_faces_idx=rng.randint(0, SMPLX_F, 51).astype(np.int64),
+             lmk_bary_coords=(bary / bary.sum(1, keepdims=True)).astype(np.float32))
+    return archive
+
+
+class HostPeak:
+    """The process's peak resident set (VmRSS, sampled every 5 ms) while it is entered."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS"))
+
+    def _watch(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+
+def timed_cuda(fn):
+    """(result, wall seconds) of ``fn()``, the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def chunked(fn, x, size: int = VIZ_CHUNK):
+    """``fn`` over chunks of x's first axis, concatenated."""
+    outs = [fn(x[s:s + size]) for s in range(0, x.shape[0], size)]
+    return torch.cat(outs) if isinstance(outs[0], torch.Tensor) else np.concatenate(outs)
+
+
+def pixels_differ(a, b) -> int:
+    a, b = (torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x.cpu()
+            for x in (a, b))
+    return int((a != b).any(-1).sum())
+
+
+def phase_viz_clis(root: Path, wav_dir: Path) -> dict:
+    """20b. cli.test_emage and cli.test_camn with --visualization on the take, in
+    process; K1 / K2 launches counted over each run."""
+    from pantomatrix_tpu_torch.cli import test_camn, test_emage
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+    from pantomatrix_tpu_torch.viz.avi import read_avi
+
+    out = {}
+    for name, main, videos in (
+            ("emage", test_emage.main, {"_2dface": (512, 512), "_2dbody": (480, 720)}),
+            ("camn", test_camn.main, {"_2dbody": (480, 720)})):
+        save = root / f"cli_{name}"
+        argv = ["--random_init", "--visualization", "--device", "cuda", "--audio_folder",
+                str(wav_dir), "--save_folder", str(save)]
+        torch.cuda.synchronize()
+        vq_cuda.launches = lstm_cuda.launches = 0
+        t0 = time.time()
+        printed = quiet_main(main, argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k1, k2 = vq_cuda.launches, lstm_cuda.launches
+        render_s = float(printed.split("render in ")[1].split()[0])
+        frames = np.load(save / "take_output.npz")["poses"].shape[0]  # CaMN: 2 x 297
+        for suffix, (w, h) in videos.items():
+            avi = read_avi(str(save / f"take_output{suffix}.avi"))
+            if (len(avi["jpegs"]), avi["width"], avi["height"], avi["fps"]) != (frames, w, h, 30):
+                raise AssertionError(f"{name}{suffix}: {len(avi['jpegs'])} frames "
+                                     f"{avi['width']} x {avi['height']} at {avi['fps']}, "
+                                     f"want {frames}")
+        want = {"emage": (k1 > 0 and k2 == 0), "camn": (k2 == 8 and k1 == 0)}[name]
+        if not want:
+            raise AssertionError(f"cli.test_{name} --visualization: K1 {k1}, K2 {k2} launches")
+        out[name] = {"k1_launches": k1, "k2_launches": k2, "wall_s": wall, "render_s": render_s,
+                     "frames": frames, "printed": printed.strip().splitlines()}
+        log(f"20b cli.test_{name} --visualization: {printed.strip()} | K1 {k1}, K2 {k2} "
+            f"launches, {wall:.1f} s")
+    return out
+
+
+def phase_viz(card):
+    """20. Visualization on the card: the test CLIs with --visualization, then
+    render_one_sequence and render_one_sequence_with_face of their take against the CPU."""
+    import os
+
+    from pantomatrix_tpu_torch.core.smplx import load_smplx
+    from pantomatrix_tpu_torch.native import build, encode_scans, host_threads
+    from pantomatrix_tpu_torch.viz import jpeg, mesh_video, render2d
+    from pantomatrix_tpu_torch.viz.avi import read_avi, write_avi_jpegs
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    rng = np.random.RandomState(20)
+    archive = write_surface_archive(root / "SMPLX_NEUTRAL_2020.npz", rng)
+    os.environ["SMPLX_MODEL_PATH"] = str(archive)
+    t0 = time.time()
+    libs = [build(n) for n in ("rasterizer", "jpeg")]
+    result = {"card": card, "host_cpus": os.cpu_count(), "rasterizer_threads": host_threads(),
+              "g++_build_s": time.time() - t0,
+              "libraries": [str(p.relative_to(HERE)) for p in libs]}
+    log(f"20a surface archive V = {SMPLX_V}, F = {SMPLX_F}; g++ build "
+        f"{result['g++_build_s']:.1f} s -> {result['libraries']}")
+    wav_dir = root / "audio"
+    wav_dir.mkdir()
+    write_wav(wav_dir / "take.wav", VIZ_SECONDS)
+    result["clis"] = phase_viz_clis(root, wav_dir)
+
+    # 20c. the take's two mesh videos on the card, timed, memory watched
+    pred_npz = root / "cli_emage" / "take_output.npz"
+    pred = dict(np.load(pred_npz, allow_pickle=True))
+    gt_npz = root / "gt.npz"
+    np.savez(gt_npz, betas=np.zeros(300, np.float32),
+             poses=rng.uniform(-0.4, 0.4, (VIZ_FRAMES, 165)).astype(np.float32),
+             expressions=rng.uniform(-1, 1, (VIZ_FRAMES, 100)).astype(np.float32),
+             trans=rng.uniform(-0.1, 0.1, (VIZ_FRAMES, 3)).astype(np.float32))
+    gt = dict(np.load(gt_npz))
+    card_model, cpu_model = load_smplx(str(archive), "cuda"), load_smplx(str(archive), "cpu")
+    wav = str(wav_dir / "take.wav")
+    renders = {}
+    for name, call in (
+            ("render_one_sequence", lambda out: mesh_video.render_one_sequence(
+                str(pred_npz), str(gt_npz), str(out), wav, model=card_model)),
+            ("render_one_sequence_with_face", lambda out: (
+                mesh_video.render_one_sequence_with_face(str(pred_npz), str(out), wav,
+                                                         model=card_model)))):
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as mem:
+            path, wall = timed_cuda(lambda: call(root / name))
+        avi = read_avi(path)  # raises unless idx1 points at the movi chunks
+        if (len(avi["jpegs"]), len(avi["audio"])) != (VIZ_FRAMES, VIZ_SECONDS * 16000):
+            raise AssertionError(f"{name}: {len(avi['jpegs'])} frames, {len(avi['audio'])} "
+                                 f"samples")
+        renders[name] = {"wall_s": wall, "frames_per_s": VIZ_FRAMES / wall,
+                         "width": avi["width"], "height": avi["height"],
+                         "bytes": Path(path).stat().st_size,
+                         "host_rss_start_bytes": mem.start, "host_rss_peak_bytes": mem.peak,
+                         "device_peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"20c {name}: {VIZ_FRAMES} frames {avi['width']} x {avi['height']}, "
+            f"{len(avi['audio'])} samples, idx1 consistent; {wall:.2f} s "
+            f"({VIZ_FRAMES / wall:.1f} frames/s); host RSS {mem.start / 2**30:.2f} -> "
+            f"{mem.peak / 2**30:.2f} GiB, device peak "
+            f"{renders[name]['device_peak_bytes'] / 2**30:.2f} GiB")
+    t0 = time.time()
+    render2d.render2d(pred, str(root / "render2d.avi"), model=card_model)
+    torch.cuda.synchronize()
+    render2d_s = time.time() - t0
+
+    # 20c. each stage of those calls on the card against the same stage on the CPU, timed
+    streams = {"pred": (pred, {}), "gt": (gt, {}),
+               "head": (pred, {"zero_body": True, "scale": 7.0, "y_shift": 10.0})}
+    verts, fk_err, fk_s = {}, {}, 0.0
+    for name, (data, kw) in streams.items():
+        on_card, s = timed_cuda(lambda: mesh_video._fk_vertices(card_model, data, **kw))
+        fk_s += s
+        on_cpu = mesh_video._fk_vertices(cpu_model, data, **kw)
+        fk_err[name] = float(np.abs(on_card - on_cpu).max())
+        verts[name] = (on_card, on_cpu)
+    if max(fk_err.values()) > VIZ_FK_ATOL:
+        raise AssertionError(f"FK vertices card vs CPU: {fk_err}")
+
+    def skeleton(model):
+        joints = render2d.joints_from_motion(model, pred, remove_global=True)
+        to_frames = lambda j: render2d.draw_frames(
+            render2d.project_perspective(j, 1000.0, 720, 480, (0.0, -1.0, 3.0)), 720, 480)
+        return joints, to_frames
+
+    joints, to_frames = skeleton(card_model)
+    sk_card, draw_s = timed_cuda(lambda: chunked(to_frames, joints))
+    cpu_joints, cpu_to_frames = skeleton(cpu_model)
+    counts = {"skeleton": pixels_differ(sk_card, chunked(cpu_to_frames, cpu_joints))}
+    del sk_card
+
+    raster_s, side = 0.0, []
+    for name, (on_card, on_cpu) in verts.items():
+        t0 = time.time()
+        frames = mesh_video.render_frames(on_card, card_model.faces)
+        raster_s += time.time() - t0
+        counts[f"mesh_{name}"] = pixels_differ(frames, mesh_video.render_frames(
+            on_cpu, cpu_model.faces))
+        if name != "head":
+            side.append(frames)
+    n_px = VIZ_FRAMES * 720 * 480
+    if max(counts.values()) > VIZ_PIXEL_SHARE * n_px:
+        raise AssertionError(f"pixels that differ, card vs CPU, of {n_px}: {counts}")
+
+    # JPEG: render_one_sequence's side-by-side RGB frames, flipped to BGR and transformed
+    # on each device (on the card: copy in, transform, copy out, each timed)
+    side = torch.as_tensor(np.concatenate(side, axis=2))
+    q_card, jpeg_s = [], {"h2d": 0.0, "device": 0.0, "d2h": 0.0}
+    for s in range(0, VIZ_FRAMES, VIZ_CHUNK):
+        on_card, t = timed_cuda(lambda: side[s:s + VIZ_CHUNK].cuda())
+        jpeg_s["h2d"] += t
+        q, t = timed_cuda(lambda: jpeg.quantized_blocks(on_card.flip(-1)))
+        jpeg_s["device"] += t
+        q, t = timed_cuda(lambda: q.cpu())
+        jpeg_s["d2h"] += t
+        q_card.append(q)
+    q_card = torch.cat(q_card)
+    coef = {"total": q_card.numel(), "off_by_one": 0, "off_by_more": 0}
+    for s in range(0, VIZ_FRAMES, VIZ_CHUNK):
+        delta = (q_card[s:s + VIZ_CHUNK].to(torch.int32) - jpeg.quantized_blocks(
+            side[s:s + VIZ_CHUNK].flip(-1)).to(torch.int32)).abs()
+        coef["off_by_one"] += int((delta == 1).sum())
+        coef["off_by_more"] += int((delta > 1).sum())
+    del side, delta
+    if coef["off_by_more"] or coef["off_by_one"] > VIZ_COEF_SHARE * coef["total"]:
+        raise AssertionError(f"JPEG coefficients card vs CPU: {coef}")
+    codes, sizes = jpeg._code_tables()
+    t0 = time.time()
+    scans = encode_scans(q_card.numpy(), jpeg.MCU_COMPONENT, jpeg.MCU_DC_TABLE,
+                         jpeg.MCU_AC_TABLE, codes, sizes)
+    jpeg_host_s = time.time() - t0
+    del q_card
+    head = jpeg.jpeg_header(720, 960)
+    payloads = [head + sc + b"\xff\xd9" for sc in scans]
+    t0 = time.time()
+    write_avi_jpegs(str(root / "write.avi"), payloads, VIZ_FRAMES, 960, 720, 30)
+    write_s = time.time() - t0
+
+    per = lambda s, n: 1e3 * s / n
+    result.update({
+        "fk_max_abs_err": fk_err, "pixels": n_px, "pixels_differ": counts,
+        "jpeg_coefficients": coef, "renders": renders,
+        "ms_per_frame": {
+            "fk": per(fk_s, 3 * VIZ_FRAMES), "draw": per(draw_s, VIZ_FRAMES),
+            "rasterize": per(raster_s, 3 * VIZ_FRAMES),
+            "jpeg_copy_in_960x720": per(jpeg_s["h2d"], VIZ_FRAMES),
+            "jpeg_device_960x720": per(jpeg_s["device"], VIZ_FRAMES),
+            "jpeg_copy_out_960x720": per(jpeg_s["d2h"], VIZ_FRAMES),
+            "jpeg_host_960x720": per(jpeg_host_s, VIZ_FRAMES),
+            "write": per(write_s, VIZ_FRAMES)},
+        "render2d_frames_per_s": VIZ_FRAMES / render2d_s,
+        "seconds": time.time() - t_phase})
+    log(f"20c FK card vs CPU {fk_err}; pixels differing of {n_px}: {counts}; JPEG "
+        f"coefficients {coef}")
+    log(f"20d ms a frame {json.dumps(result['ms_per_frame'])}; render2d "
+        f"{result['render2d_frames_per_s']:.1f} frames/s; {os.cpu_count()} host CPUs; "
+        f"{card}")
+    tmp.cleanup()
+    log(f"visualization phase: {result['seconds']:.1f} s")
+    return result
+
+
 def main():
     t_all = time.time()
     # 1. device
@@ -2371,6 +2704,9 @@ def main():
     # 19. tokenizer pretraining and data preparation (counts K1 and K2 on its own paths)
     pretrain = phase_pretrain(card)
     (out_dir / "chip_smoke_pretrain.json").write_text(json.dumps(pretrain, indent=1))
+    # 20. visualization (counts K1 and K2 launches on the test CLIs' --visualization runs)
+    viz = phase_viz(card)
+    (out_dir / "chip_smoke_viz.json").write_text(json.dumps(viz, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     k1_rows = k1_rows + pretrain["vq_cli"]["train_emage_on_export"]["k1_by_shape"]
@@ -2401,6 +2737,9 @@ def main():
         "launches_train_emage_val": pretrain["vq_cli"]["train_emage_on_export"][
             "launches_train_emage_val"],
         "launches_vq_train_step": {c["mode"]: c["k1_launches"] for c in pretrain["vq_cells"]},
+        "launches_visualization": {
+            f"cli.test_emage --visualization, {VIZ_SECONDS} s take": viz["clis"]["emage"][
+                "k1_launches"]},
     }]
     head = next(r for r in k2_rows
                 if tuple(r["shape"]) == K2_HEADLINE and r["directions"] == 2)
@@ -2433,6 +2772,9 @@ def main():
                          if tuple(r["shape"]) == TRAIN_K2_SHAPE),
         "launches_bench_train": {f"{r['family']} {r['dtype']} step": r["k2_launches_per_step"]
                                  for r in pretrain["bench_train"] if r["family"] != "emage"},
+        "launches_visualization": {
+            f"cli.test_camn --visualization, {VIZ_SECONDS} s take": viz["clis"]["camn"][
+                "k2_launches"]},
     })
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

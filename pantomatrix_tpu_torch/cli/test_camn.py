@@ -7,7 +7,9 @@ upsampled x2 to 30 fps, as a BEAT-format npz per clip.
         --model_path <checkpoint dir>      # or --random_init for a smoke run
 
 ``--compute_dtype bfloat16`` selects the low-precision serving mode; the default is the
-float32 parity path.
+float32 parity path. ``--visualization`` renders each clip as a 2D skeleton video,
+``<clip>_output_2dbody.avi``, on ``--device`` (the SMPL-X archive comes from
+``SMPLX_MODEL_PATH``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["bfloat16", "float32"],
                    help="opt-in low-precision serving; default float32 reference parity")
+    p.add_argument("--visualization", action="store_true",
+                   help="render a 2D skeleton video of every clip (MJPG AVI)")
     return p
 
 
@@ -46,6 +50,19 @@ def audio_files_in(folder: str):
     return sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.endswith(".wav"))
 
 
+def visualize_one(save_folder: str, audio_path: str, smplx_model) -> str:
+    """The clip's full-body 2D skeleton video beside its npz; returns its path."""
+    import numpy as np
+
+    from ..viz.render2d import render2d
+
+    base = os.path.splitext(os.path.basename(audio_path))[0]
+    npz_path = os.path.join(save_folder, f"{base}_output.npz")
+    motion_dict = dict(np.load(npz_path, allow_pickle=True))
+    return render2d(motion_dict, npz_path.replace(".npz", "_2dbody.avi"), model=smplx_model,
+                    face_only=False, remove_global=True)
+
+
 def run(args, model_cls, config_cls) -> None:
     """Generate and save every clip of ``--audio_folder`` with ``model_cls``."""
     from ..data.audio import load_audio
@@ -55,9 +72,10 @@ def run(args, model_cls, config_cls) -> None:
     model = load_model(args, model_cls, config_cls)
     cfg = model.config
     device = torch.device(args.device)
+    files = audio_files_in(args.audio_folder)
     all_t = 0
     t0 = time.time()
-    for audio_path in audio_files_in(args.audio_folder):
+    for audio_path in files:
         audio = torch.from_numpy(load_audio(audio_path, cfg.audio_sr))[None].to(device)
         speaker_id = torch.zeros((1, 1), dtype=torch.long, device=device)
         motion = model(audio, speaker_id, seed_frames=cfg.seed_frames,
@@ -70,6 +88,14 @@ def run(args, model_cls, config_cls) -> None:
                          motion.reshape(t, -1), upsample=30 // cfg.pose_fps)
     print(f"generate total {all_t / cfg.pose_fps:.2f} seconds motion in "
           f"{time.time() - t0:.2f} seconds, saved in {args.save_folder}")
+    if args.visualization:
+        from ..viz.render2d import load_render_model
+
+        t0 = time.time()
+        smplx_model = load_render_model(args.device)
+        for audio_path in files:
+            visualize_one(args.save_folder, audio_path, smplx_model)
+        print(f"render in {time.time() - t0:.2f} seconds")
 
 
 def main(argv=None) -> None:

@@ -10,6 +10,9 @@ and saves BEAT-format npz (poses, expressions, trans) per clip.
 
 ``--compute_dtype bfloat16`` and ``--batched_wav`` select the serving modes of
 ``EmageAudioModel.inference``; the default is the float32 parity path.
+``--visualization`` renders each clip as a face-only (512 x 512) and a full-body 2D
+skeleton video, ``<clip>_output_2dface.avi`` and ``<clip>_output_2dbody.avi``, on
+``--device`` (the SMPL-X archive comes from ``SMPLX_MODEL_PATH``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batched_wav", action="store_true",
                    help="opt-in: encode all full windows' audio in one WavEncoder call "
                         "before the AR loop")
+    p.add_argument("--visualization", action="store_true",
+                   help="render 2D skeleton videos of every clip (MJPG AVI)")
     return p
 
 
@@ -85,17 +90,41 @@ def inference_one(model, vq, audio_path: str, save_folder: str, compute_dtype=No
     return t
 
 
+def visualize_one(save_folder: str, audio_path: str, smplx_model) -> None:
+    """The clip's face-only and full-body 2D skeleton videos beside its npz."""
+    import numpy as np
+
+    from ..viz.render2d import render2d
+
+    base = os.path.splitext(os.path.basename(audio_path))[0]
+    npz_path = os.path.join(save_folder, f"{base}_output.npz")
+    motion_dict = dict(np.load(npz_path, allow_pickle=True))
+    render2d(motion_dict, npz_path.replace(".npz", "_2dface.avi"), model=smplx_model,
+             height=512, width=512, face_only=True, remove_global=True)
+    render2d(motion_dict, npz_path.replace(".npz", "_2dbody.avi"), model=smplx_model,
+             face_only=False, remove_global=True)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     os.makedirs(args.save_folder, exist_ok=True)
     model, vq = load_models(args.model_path, args.random_init, args.device)
+    files = audio_files_in(args.audio_folder)
     all_t = 0
     t0 = time.time()
-    for audio_path in audio_files_in(args.audio_folder):
+    for audio_path in files:
         all_t += inference_one(model, vq, audio_path, args.save_folder,
                                args.compute_dtype, args.batched_wav)
     print(f"generate total {all_t / model.config.pose_fps:.2f} seconds motion in "
           f"{time.time() - t0:.2f} seconds on {args.device}")
+    if args.visualization:
+        from ..viz.render2d import load_render_model
+
+        t0 = time.time()
+        smplx_model = load_render_model(args.device)
+        for audio_path in files:
+            visualize_one(args.save_folder, audio_path, smplx_model)
+        print(f"render in {time.time() - t0:.2f} seconds")
 
 
 if __name__ == "__main__":

@@ -159,15 +159,23 @@ def run_test_pass(generate_fn: Callable, test_list: List[dict], save_folder: str
                   fgd_strict: bool = False, device="cuda") -> Dict[str, object]:
     """Generate, save npz, then the metrics; returns the metric dict, also written to
     ``<save_folder>/metrics.json``. The FK metrics need the SMPL-X archive: when it is
-    missing or unreadable, only FGD is computed. The FK and the FGD encoder run on
+    missing or unreadable, only FGD is computed. ``visualize``: render the first N
+    clips as 2D skeleton videos (``<clip>_output_2dbody.avi``); without the archive this
+    is skipped with a message. The FK, the rendering and the FGD encoder run on
     ``device``."""
     from ..core.smplx import SmplxModel, default_model_path, read_smplx
+    from ..viz.render2d import render2d
     from .pipeline import evaluate_clips
 
-    if visualize:
-        raise NotImplementedError("visualization of the generated clips is not ported yet "
-                                  "(ROADMAP.md queue 1, item 4)")
     save_list = generate_test_npz(generate_fn, test_list, save_folder, pose_fps, audio_sr)
+    for pred in save_list[:visualize]:
+        try:
+            motion_dict = dict(np.load(pred["motion_path"], allow_pickle=True))
+            render2d(motion_dict, pred["motion_path"].replace(".npz", "_2dbody.avi"),
+                     face_only=False, remove_global=True, device=device)
+        except FileNotFoundError as e:
+            print(f"visualization skipped ({e})")
+            break
 
     arrays = None
     model_path = default_model_path()

@@ -78,8 +78,12 @@ def test_run_test_pass_gates(beat2, archive, families, tmp_path, monkeypatch, ca
     gen = test_flow.make_camn_generate(model)
     test_list = _test_list(beat2)[1:]
     kw = dict(pose_fps=15, with_face=False, download_path=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        test_flow.run_test_pass(gen, test_list, str(tmp_path / "viz"), visualize=1, **kw)
+    # visualization without an archive is skipped with the JAX package's message
+    monkeypatch.delenv("SMPLX_MODEL_PATH", raising=False)
+    viz = test_flow.run_test_pass(gen, test_list, str(tmp_path / "viz"), visualize=1, **kw)
+    assert set(viz) == {"fgd", "fgd_embedder"}
+    assert ("visualization skipped (SMPL-X model npz not found (set SMPLX_MODEL_PATH))"
+            in capsys.readouterr().out)
     # an archive that cannot be read: FGD only, as in the JAX package
     monkeypatch.setenv("SMPLX_MODEL_PATH", str(tmp_path / "absent.npz"))
     got = test_flow.run_test_pass(gen, test_list, str(tmp_path / "port"), **kw)

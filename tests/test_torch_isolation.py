@@ -83,6 +83,24 @@ def test_no_port_file_imports_scikit_learn():
     assert offenders == []
 
 
+def test_no_port_file_imports_cv2_or_pillow():
+    """The GPU machine has neither: drawing, JPEG and AVI are the port's own."""
+    offenders = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in ("cv2", "PIL")]
+    assert offenders == []
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = """
 import importlib, pkgutil, sys
@@ -91,8 +109,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 loaded = [m for m in sys.modules
-          if m in ("jax", "jaxlib", "pantomatrix_tpu")
-          or m.startswith(("jax.", "jaxlib.", "pantomatrix_tpu."))]
+          if m in ("jax", "jaxlib", "pantomatrix_tpu", "cv2", "PIL")
+          or m.startswith(("jax.", "jaxlib.", "pantomatrix_tpu.", "cv2.", "PIL."))]
 print(len(names), "modules")
 for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.disco",
              "cli.test_emage", "cli.test_camn", "cli.test_disco", "models.emage_graph",
@@ -102,7 +120,9 @@ for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.d
              "eval.test_flow", "cli.evaluate", "train.losses", "train.optim", "train.steps",
              "train.ckpt", "train.loop", "train.logging", "utils.config", "data.beat2",
              "data.device_data", "cli._train_common", "cli.train_camn", "cli.train_disco",
-             "cli.train_emage", "cli.train_emage_vq", "cli.preprocess", "cli.bench_train"):
+             "cli.train_emage", "cli.train_emage_vq", "cli.preprocess", "cli.bench_train",
+             "native", "native.mp3", "viz.avi", "viz.draw", "viz.jpeg", "viz.mesh_video",
+             "viz.render2d", "utils.registry"):
     assert "pantomatrix_tpu_torch." + want in names, names
 assert not loaded, loaded
 """
