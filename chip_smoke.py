@@ -134,13 +134,27 @@ Phases, each of which raises on failure (nothing is caught):
      the FK, the drawing, the rasterizer, the JPEG transform on the card (and its copies
      in and out) and its Huffman coding on the host, and the AVI writing; frames a second
      end to end; host CPUs; peak host RSS and device memory. It writes
-     outputs/chip_smoke_viz.json.
+     outputs/chip_smoke_viz.json;
+ 21. multi-process training (train/mesh.py over torch.distributed): (a) world 1 over
+     NCCL on the card: in process, 3 SGD steps (TF32 off) of the phase-18c CaMN and EMAGE
+     cells without a process group, on the world-1 mesh, and without again: the first
+     step's losses bitwise equal, the rest within twice the run-to-run spread of the
+     single-process runs plus 4 ulps (the card's backward kernels are not deterministic),
+     step ms of each, K2 launches a CaMN step on the rank (8), the gradient all-reduce's
+     bytes and CUDA-event ms; then train_camn under torchrun and train_emage with the
+     PANTO_* variables at world 1 against the same CLI without a process group (3 SGD
+     steps at the full-width cells, tests/test_torch_multiprocess.py's bounds); (b) the
+     tiny EMAGE (plain and FSDP, with process 0's test pass) and DisCo CLI runs of that
+     test file (tests/_torch_mp_runs.py), two processes sharing the card over gloo (NCCL
+     with two cards or more) against one, process 1 writing no checkpoint; (c) dryrun_multichip(2, device="cuda"), while (b) runs. It
+     writes outputs/chip_smoke_multiprocess.json.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1833,16 +1847,16 @@ def phase_train_full_width(card):
     return cells, rel
 
 
-def write_train_data(root: Path) -> dict:
-    """A synthetic BEAT2 training set from a numpy seed: 2 takes of 12 s (speaker 2),
-    with 128-frame clips for CaMN and DisCo (with labels) and 64-frame clips for EMAGE,
-    stride 20, as the shipped configs read them."""
+def write_train_data(root: Path, takes: int = 2, seconds: int = 12) -> dict:
+    """A synthetic BEAT2 training set from a numpy seed: ``takes`` takes of ``seconds``
+    (speaker 2), with 128-frame clips for CaMN and DisCo (with labels) and 64-frame clips
+    for EMAGE, stride 20, as the shipped configs read them."""
     rng = np.random.RandomState(18)
     for sub in ("smplxflame_30", "footcontact", "wave16k"):
         (root / sub).mkdir(parents=True)
     metas = {"camn": [], "emage": []}
-    for i in range(2):
-        vid, n = f"2_scott_0_{i + 1}_{i + 1}", 12 * 30
+    for i in range(takes):
+        vid, n = f"2_scott_0_{i + 1}_{i + 1}", seconds * 30
         np.savez(root / "smplxflame_30" / f"{vid}.npz", betas=np.zeros(300, np.float32),
                  poses=rng.uniform(-0.5, 0.5, (n, 165)).astype(np.float32),
                  expressions=rng.normal(0, 0.5, (n, 100)).astype(np.float32),
@@ -1871,15 +1885,18 @@ def write_train_data(root: Path) -> dict:
     return paths
 
 
-def run_train_cli(family: str, meta: Path, out: Path, flags=()) -> dict:
+def run_train_cli(family: str, meta: Path, out: Path, flags=(), launcher=(), env_extra=None) -> dict:
     """``python -m pantomatrix_tpu_torch.cli.train_<family> --device cuda`` at the shipped
-    (full-width) config on the synthetic set, batch 8; its run directory and stdout."""
+    (full-width) config on the synthetic set, batch 8 unless ``flags`` say otherwise; its
+    run directory and stdout. ``launcher`` goes before ``-m`` (torchrun), ``env_extra``
+    into its environment."""
     import os
 
-    cmd = [sys.executable, "-m", f"pantomatrix_tpu_torch.cli.train_{family}", "--device", "cuda",
-           f"data.meta_paths=['{meta}']", f"data.test_meta_paths=['{meta}']", "data.train_bs=8",
-           f"output_dir={out}", "log_period=1", *flags]
-    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, *launcher, "-m", f"pantomatrix_tpu_torch.cli.train_{family}",
+           "--device", "cuda", f"data.meta_paths=['{meta}']", f"data.test_meta_paths=['{meta}']",
+           "data.train_bs=8", f"output_dir={out}", "log_period=1", *flags]
+    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env_extra or {}))
     t0 = time.time()
     r = subprocess.run(cmd, cwd=str(HERE), env=env, capture_output=True, text=True, timeout=600)
     wall = time.time() - t0
@@ -2643,6 +2660,211 @@ def phase_viz(card):
     log(f"visualization phase: {result['seconds']:.1f} s")
     return result
 
+MP_STEPS = 3  # SGD steps of every world-1 run
+MP_CELLS = ("camn", "emage")  # at TRAIN_CELLS' batches and widths
+MP_TAKES, MP_SECONDS = 4, 40  # 216 CaMN clips of 128 frames, 228 EMAGE clips of 64
+MP_CLI_FLAGS = ("solver.optimizer=sgd", "solver.compute_dtype=float32",
+                f"solver.max_train_steps={MP_STEPS}", "solver.steps_per_dispatch=1",
+                f"validation.validation_steps={MP_STEPS}", "validation.test_steps=0")
+# (loss rtol, parameter atol) of the world-1 CLIs: tests/test_torch_multiprocess.py's
+# bounds; CaMN shares DisCo's geodesic term whose clamped arccos makes its steps
+# ill-conditioned (see there), EMAGE does not
+MP_BOUNDS = {"camn": (5e-5, 1e-5), "emage": (1e-5, 1e-6)}
+
+
+def mp_runs():
+    """``tests/_torch_mp_runs.py``: the tiny multi-process runs, their launcher and the
+    comparison of two runs, shared with tests/test_torch_multiprocess.py."""
+    sys.path.insert(0, str(HERE / "tests"))
+    import _torch_mp_runs
+
+    return _torch_mp_runs
+
+
+def beyond_noise(got: dict, want: dict, again: dict) -> float:
+    """How far the tensors ``got`` stray from ``want`` beyond twice the run-to-run spread
+    of the same program (the largest ``|again - want|`` over all of them), each allowed
+    4 float32 ulps at its largest magnitude besides (0: within). Two single-process runs
+    on the card are not bitwise equal (nondeterministic backward kernels), so from step 2
+    on every run starts from slightly other weights: one repeat measured losses 0-2 ulps
+    apart, which one sample of the spread can miss."""
+    err = lambda a, b: float((a.double() - b.double()).abs().max())
+    spread = max(err(again[k], v) for k, v in want.items())
+    return max(max(err(got[k], v) - 4 * float(np.spacing(np.float32(v.abs().max())))
+                   - 2 * spread, 0.0) for k, v in want.items())
+
+
+def mp_world1_cell(family: str, mesh, card) -> dict:
+    """21a, in process: MP_STEPS SGD steps (TF32 off) of the full-width cell without a
+    mesh, on the world-1 NCCL mesh, and without again (the run-to-run spread): losses and
+    parameters of the mesh run against the first run (the first step's losses bitwise:
+    the forward is deterministic and every collective at size 1 a copy; the rest within
+    ``beyond_noise``), step ms of each, K2 launches a step on the mesh run, and the
+    gradient all-reduce's bytes and CUDA-event ms."""
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+    from pantomatrix_tpu_torch.train.mesh import reduce_gradients
+
+    bs, frames, lr = TRAIN_CELLS[family]
+    batch = train_batch(family, bs, frames, "cuda")
+    runs = {}
+    for name in ("single", "world1", "single_again"):
+        model, opt, step = train_setup(family, "cuda", tiny=False, lr=lr, optimizer="sgd",
+                                       mesh=mesh if name == "world1" else None)
+        torch.cuda.synchronize()
+        lstm_cuda.launches = 0
+        losses, walls = [], []
+        for i in range(MP_STEPS):
+            t0 = time.perf_counter()
+            out = step(batch, i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(torch.stack([v.float() for _, v in sorted(out.items())]).cpu())
+        row = {"step_ms": [1e3 * w for w in walls], "k2_launches": lstm_cuda.launches}
+        if name == "world1":
+            trainable = [p for p in model.parameters() if p.requires_grad]
+            row["allreduce_bytes"] = reduce_gradients(trainable, mesh)
+            row["allreduce_ms"] = cuda_ms(lambda: reduce_gradients(trainable, mesh), reps=10)
+        row["losses"] = torch.stack(losses)
+        row["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                        if v.is_floating_point()}
+        runs[name] = row
+        del model, opt, step
+        torch.cuda.empty_cache()
+    a, w, b = runs["single"], runs["world1"], runs["single_again"]
+    cell = {"family": family, "batch": bs, "frames": frames, "steps": MP_STEPS,
+            "single_step_ms": float(np.median(a["step_ms"][1:])),
+            "world1_step_ms": float(np.median(w["step_ms"][1:])),
+            "single_again_step_ms": float(np.median(b["step_ms"][1:])),
+            "k2_launches_per_step": w["k2_launches"] / MP_STEPS,
+            "allreduce_bytes": w["allreduce_bytes"], "allreduce_ms": w["allreduce_ms"],
+            "losses_bitwise": torch.equal(w["losses"], a["losses"]),
+            "first_step_losses_bitwise": torch.equal(w["losses"][0], a["losses"][0]),
+            "params_bitwise": all(torch.equal(w["state"][k], v) for k, v in a["state"].items()),
+            "single_repeat_bitwise": all(torch.equal(b["state"][k], v)
+                                         for k, v in a["state"].items()),
+            "loss_max_abs_err": float((w["losses"] - a["losses"]).abs().max()),
+            "loss_run_to_run": float((b["losses"] - a["losses"]).abs().max()),
+            "param_max_abs_err": max(float((w["state"][k] - v).abs().max())
+                                     for k, v in a["state"].items()),
+            "param_run_to_run": max(float((b["state"][k] - v).abs().max())
+                                    for k, v in a["state"].items()),
+            "loss_beyond_noise": beyond_noise({"l": w["losses"]}, {"l": a["losses"]},
+                                              {"l": b["losses"]}),
+            "param_beyond_noise": beyond_noise(w["state"], a["state"], b["state"]),
+            "card": card}
+    finite = bool(torch.isfinite(w["losses"]).all())
+    if not (finite and cell["first_step_losses_bitwise"] and cell["loss_beyond_noise"] == 0
+            and cell["param_beyond_noise"] == 0
+            and cell["k2_launches_per_step"] == TRAIN_K2_PER_STEP[family]
+            and w["k2_launches"] % MP_STEPS == 0 and cell["allreduce_bytes"] > 0):
+        raise AssertionError(f"world-1 NCCL {family}: finite={finite} {cell}")
+    log(f"multi-process 21a {family} world 1 over NCCL: {json.dumps(cell)}")
+    return cell
+
+
+def mp_world1_clis(root: Path, card) -> dict:
+    """21a, the CLIs: train_camn under torchrun (--nproc_per_node 1) and train_emage with
+    the PANTO_* variables, both over NCCL at world 1, each against the CLI in one process
+    without a process group, at the full-width cells and SGD in float32. The four runs
+    share the card at once (the in-process part times the steps)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    metas = write_train_data(root / "beat2", MP_TAKES, MP_SECONDS)
+    runs, result = {}, {}
+    with ThreadPoolExecutor(4) as pool:
+        for family in ("camn", "emage"):
+            bs = TRAIN_CELLS[family][0]
+            flags = (f"data.train_bs={bs}", *MP_CLI_FLAGS) + (
+                ("--random_vq",) if family == "emage" else ())
+            port = mp_runs().free_port()
+            launch = {"camn": dict(launcher=("-m", "torch.distributed.run", "--nproc_per_node",
+                                             "1", "--master_addr", "localhost",
+                                             "--master_port", str(port))),
+                      "emage": dict(env_extra={"PANTO_COORDINATOR": f"localhost:{port}",
+                                               "PANTO_NUM_PROCESSES": "1",
+                                               "PANTO_PROCESS_ID": "0"})}[family]
+            runs[family] = (
+                pool.submit(run_train_cli, family, metas[family], root / f"{family}_single",
+                            flags),
+                pool.submit(run_train_cli, family, metas[family], root / f"{family}_world1",
+                            flags, **launch))
+        for family, (single, world1) in runs.items():
+            walls = (single.result()["wall_s"], world1.result()["wall_s"])
+            row = mp_runs().compare_runs(root / f"{family}_single", [root / f"{family}_world1"],
+                                         MP_BOUNDS[family])
+            row.update(launch="torchrun" if family == "camn" else "PANTO_* variables",
+                       batch=TRAIN_CELLS[family][0], pair_wall_s=max(walls), card=card)
+            log(f"multi-process 21a CLI train_{family} world 1 over NCCL: {json.dumps(row)}")
+            result[family] = row
+    return result
+
+
+def mp_two_ranks(root: Path, card) -> dict:
+    """21b: the tiny runs of tests/test_torch_multiprocess.py (``tests/_torch_mp_runs.py``)
+    on the card, two processes against one (gloo on a single card, where both processes
+    share it; NCCL with two cards or more), all started together, at the test's bounds."""
+    R = mp_runs()
+    t0 = time.time()
+    train_meta, test_meta = R.write_data(root / "tiny_beat2")
+    outs = R.start_runs(R.RUNS, [f"data.meta_paths=['{train_meta}']",
+                                 f"data.test_meta_paths=['{test_meta}']"], root, "cuda")
+    result = {"wall_s": time.time() - t0, "card": card}
+    for name, bounds in R.BOUNDS.items():
+        row = R.compare_runs(outs[name.split("_")[0] + "_single"][0], outs[name], bounds)
+        backend = re.search(r"backend (\w+)", (root / f"{name}_0.log").read_text())
+        row["backend"] = backend.group(1) if backend else None
+        result[name] = row
+    log(f"multi-process 21b two processes on {torch.cuda.device_count()} card(s): "
+        f"{json.dumps(result)}")
+    return result
+
+
+def phase_multiprocess(card):
+    """21. Multi-process training: (a) world 1 over NCCL in process and through the CLIs,
+    (b) two processes of the tiny runs, (c) dryrun_multichip(2, device="cuda"), (b) and
+    (c) at once."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from pantomatrix_tpu_torch.entry import dryrun_multichip
+    from pantomatrix_tpu_torch.train.mesh import make_train_mesh, maybe_init_distributed
+
+    t0 = time.time()
+    result = {"card": card}
+    env = {"PANTO_COORDINATOR": f"localhost:{mp_runs().free_port()}",
+           "PANTO_NUM_PROCESSES": "1", "PANTO_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        maybe_init_distributed("cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world 1 on a card: backend {dist.get_backend()}, not nccl")
+        result["world1"] = {f: mp_world1_cell(f, make_train_mesh(TRAIN_CELLS[f][0]), card)
+                            for f in MP_CELLS}
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        result["world1_cli"] = mp_world1_clis(Path(tmp), card)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        t1 = time.time()
+        dryrun = pool.submit(dryrun_multichip, 2, "cuda")
+        result["two_processes"] = mp_two_ranks(Path(tmp), card)
+        result["dryrun"] = dryrun.result()
+        result["two_processes_and_dryrun_s"] = time.time() - t1
+    log(f"multi-process 21c dryrun_multichip(2, cuda): {json.dumps(result['dryrun'])}")
+    result["seconds"] = time.time() - t0
+    log(f"multi-process phase: {result['seconds']:.1f} s")
+    return result
+
 
 def main():
     t_all = time.time()
@@ -2655,6 +2877,12 @@ def main():
     import_port()
     from pantomatrix_tpu_torch.ops import build
 
+    phase_s, t_mark = {}, [time.time()]
+
+    def mark(name):  # seconds of each phase, printed before the kernels line
+        t_mark.append(time.time())
+        phase_s[name] = round(t_mark[-1] - t_mark[-2], 1)
+
     # 2. build
     t0 = time.time()
     libs = build.build(["vq_nearest_code", "lstm_sequence"])
@@ -2663,23 +2891,32 @@ def main():
         log(Path(f"{p}.log").read_text().strip() if Path(f"{p}.log").exists() else "")
 
     # 3. K1 against its plain version
+    mark("1-2 device, build")
     k1_rows = phase_k1("cuda")
+    mark("3 K1")
     # 4. parity at the tiny config
     phase_parity()
+    mark("4 parity")
     # 5. main path at full width (counts K1 launches)
     main_launches = phase_main_path("cuda", card)
+    mark("5 main path")
     # 6. CLI
     phase_cli()
+    mark("6 CLI")
     # 7. K2 against its plain version
     k2_rows = phase_k2("cuda")
+    mark("7 K2")
     # 8. parity at the tiny CaMN/DisCo configs
     phase_lstm_parity()
+    mark("8 LSTM parity")
     # 9-10. CaMN and DisCo at full width (each counts K2 launches)
     k2_launches = {name: phase_lstm_path(name, card) for name in ("camn", "disco")}
     # 11. CaMN CLI: 3 s at 15 fps, saved upsampled to 30 fps
     run_cli("pantomatrix_tpu_torch.cli.test_camn", {"poses": (90, 165)})
+    mark("9-11 CaMN, DisCo")
     # 12. bf16 serving (counts K1 and K2 launches on its own paths)
     bf16 = phase_bf16(card)
+    mark("12 bf16")
     out_dir = HERE / "outputs"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_bf16.json").write_text(json.dumps(bf16, indent=1))
@@ -2693,20 +2930,30 @@ def main():
     del model, vq
     torch.cuda.empty_cache()
     # 16. SequenceGenerator, the benchmark script, entry()
+    mark("13-15 graph, streaming, daemon")
     serving["rest"] = phase_rest(card)
+    mark("16 rest")
     (out_dir / "chip_smoke_serving.json").write_text(json.dumps(serving, indent=1))
     # 17. evaluation (counts K1 and K2 launches on its own paths)
     evaluation = phase_eval(card)
+    mark("17 evaluation")
     (out_dir / "chip_smoke_eval.json").write_text(json.dumps(evaluation, indent=1))
     # 18. training (counts K2 launches on its own paths)
     training = phase_train(card)
+    mark("18 training")
     (out_dir / "chip_smoke_train.json").write_text(json.dumps(training, indent=1))
     # 19. tokenizer pretraining and data preparation (counts K1 and K2 on its own paths)
     pretrain = phase_pretrain(card)
+    mark("19 pretraining")
     (out_dir / "chip_smoke_pretrain.json").write_text(json.dumps(pretrain, indent=1))
     # 20. visualization (counts K1 and K2 launches on the test CLIs' --visualization runs)
     viz = phase_viz(card)
+    mark("20 visualization")
     (out_dir / "chip_smoke_viz.json").write_text(json.dumps(viz, indent=1))
+    # 21. multi-process training (counts K2 launches on the world-1 NCCL CaMN steps)
+    multiprocess = phase_multiprocess(card)
+    mark("21 multi-process")
+    (out_dir / "chip_smoke_multiprocess.json").write_text(json.dumps(multiprocess, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     k1_rows = k1_rows + pretrain["vq_cli"]["train_emage_on_export"]["k1_by_shape"]
@@ -2775,7 +3022,11 @@ def main():
         "launches_visualization": {
             f"cli.test_camn --visualization, {VIZ_SECONDS} s take": viz["clis"]["camn"][
                 "k2_launches"]},
+        "launches_multiprocess": {
+            f"{f} train step, world 1 over NCCL": c["k2_launches_per_step"]
+            for f, c in multiprocess["world1"].items()},
     })
+    log(f"phase seconds: {json.dumps(phase_s)}")
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

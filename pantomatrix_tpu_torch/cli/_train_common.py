@@ -4,9 +4,15 @@ dotlist overrides and flags, timestamped experiment directories, the sanity_chec
 snapshot, seeding, the optimizer from the solver section, the device-resident loader,
 the metric sinks, the periodic test pass and the validation FGD.
 
-The CLIs train on one card: ``--device`` defaults to ``cuda`` and raises where there is
-none; ``--device cpu`` runs on the CPU. ``--debug`` runs 4 steps with a validation and a
-test every 2.
+``--device`` defaults to ``cuda`` and raises where there is none; ``--device cpu`` runs
+on the CPU. ``--debug`` runs 4 steps with a validation and a test every 2.
+
+Several processes (``torchrun --nproc_per_node N -m pantomatrix_tpu_torch.cli.train_camn
+...``, or the ``PANTO_COORDINATOR``/``PANTO_NUM_PROCESSES``/``PANTO_PROCESS_ID``
+variables): ``init_env`` starts the process group first (``train/mesh.py``), each process
+takes its card and reads ``data.train_bs // N`` rows of every global batch, and
+``solver.fsdp_model_axis = M`` shards the parameters and moments over M processes.
+Process 0 writes the metrics, the checkpoints and the test pass.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from ..utils.config import DotDict, load_config, snapshot_sanity_check, timestamp_exp_name
+from ..utils.config import load_config, snapshot_sanity_check, timestamp_exp_name
 
 
 def parse_args(default_config: str) -> Tuple[argparse.Namespace, List[str]]:
@@ -40,13 +46,18 @@ def default_config(name: str) -> str:
                         "configs", name)
 
 
-def init_env(config_name: str) -> Tuple[DotDict, torch.device]:
-    """The run's config (file, then overrides, then flags) and its device; makes the
-    experiment directory with its sanity_check snapshot."""
+def init_env(config_name: str):
+    """The run's config (file, then overrides, then flags), its device and its process
+    mesh (``train/mesh.make_train_mesh``); starts the process group where the launch
+    asks for one and makes the experiment directory with its sanity_check snapshot."""
     from ..models.api import resolve_device
+    from ..train.mesh import make_train_mesh, maybe_init_distributed
 
     args, overrides = parse_args(default_config(config_name))
+    maybe_init_distributed(args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = load_config(args.config, overrides)
     if args.debug:
         cfg.solver.max_train_steps = 4
@@ -57,15 +68,13 @@ def init_env(config_name: str) -> Tuple[DotDict, torch.device]:
     for flag in ("wandb", "visualization", "evaluation", "test"):
         if getattr(args, flag):
             cfg.validation[flag] = True
-    if int(cfg.solver.get("fsdp_model_axis", 1)) != 1:
-        raise NotImplementedError("solver.fsdp_model_axis > 1 (FSDP) is not ported yet: the "
-                                  "port trains on one card")
+    mesh = make_train_mesh(int(cfg.data.train_bs), int(cfg.solver.get("fsdp_model_axis", 1)))
     cfg.exp_name = timestamp_exp_name(cfg.get("exp_name", "exp"))
     cfg.output_dir = os.path.join(cfg.get("output_dir", "./outputs/"), cfg.exp_name)
     os.makedirs(cfg.output_dir, exist_ok=True)
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     snapshot_sanity_check(cfg.output_dir, cfg, pkg_root)
-    return cfg, device
+    return cfg, device, mesh
 
 
 def seed_everything(seed: int) -> None:
@@ -227,18 +236,23 @@ def masked_rot6d_predictor(joint_mask):
     return predict
 
 
-def run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn) -> None:
-    """The loop with the CLIs' sinks and loaders."""
+def run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn,
+        mesh) -> None:
+    """The loop with the CLIs' sinks and loaders; ends the process group, if any."""
+    import torch.distributed as dist
+
     from ..train.loop import run_training
 
-    log_fn, finish = make_log_fn(cfg)
+    log_fn, finish = make_log_fn(cfg, mesh.rank)
     loader, place_batch = maybe_device_resident(cfg, train_loader, device)
     try:
         run_training(loop_config(cfg), step_fn, model, optimizer, loader, place_batch,
                      val_fn=val_fn, model_config=getattr(model, "config", None), log_fn=log_fn,
-                     test_fn=test_fn)
+                     is_main_process=mesh.rank == 0, test_fn=test_fn, mesh=mesh)
     finally:
         finish()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 __all__ = ["build_test_fn", "init_env", "loop_config", "make_log_fn", "masked_rot6d_predictor",

@@ -1,7 +1,7 @@
 """DisCo trainer (counterpart of ``pantomatrix_tpu/cli/train_disco.py``): the geodesic and
 contrastive disentanglement objective, class-balanced sampling over the content labels
 (the reference's WeightedRandomSampler), windowed validation FGD with best checkpoints,
-on one card.
+on one card or several processes (``cli/_train_common.py``).
 
 Usage: python -m pantomatrix_tpu_torch.cli.train_disco [--config <yaml>] [--debug]
        [--device cuda|cpu] [k=v ...]
@@ -54,28 +54,43 @@ class _WeightedLoader:
             yield self._collate([self.dataset[int(i)] for i in chunk])
 
 
-def main():
+def build_training(cfg, device, mesh=None):
+    """(model, optimizer, step_fn, train_loader) of a run of ``cfg``, placed on ``mesh``
+    (None: one process): what ``main`` trains and scripts/torch_replay_check.py
+    replays."""
     import torch
 
-    from ..core.masking import MASK_DICT
-    from ..data.beat2 import BEAT2Dataset, DataLoader
-    from ..eval.test_flow import make_disco_generate
+    from ..data.beat2 import BEAT2Dataset
     from ..models.configs import DiscoAudioConfig
     from ..models.disco import DiscoAudio
+    from ..train.mesh import make_mesh, place_train_state
     from ..train.steps import make_disco_train_step
     from . import _train_common as common
 
-    cfg, device = common.init_env("disco_audio.yaml")
+    mesh = make_mesh(1) if mesh is None else mesh
     common.seed_everything(cfg.seed)
     model_cfg = DiscoAudioConfig.from_dict(cfg.model.to_dict())
     model = DiscoAudio(model_cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(device)
-    optimizer = common.optimizer_from_config(cfg, model)
+    model, optimizer = place_train_state(model, common.optimizer_from_config(cfg, model), mesh)
     step_fn = make_disco_train_step(model, optimizer,
-                                    compute_dtype=cfg.solver.get("compute_dtype"), seed=cfg.seed)
-
+                                    compute_dtype=cfg.solver.get("compute_dtype"), seed=cfg.seed,
+                                    mesh=mesh)
     train_ds = BEAT2Dataset(cfg.data.meta_paths, "train", model_cfg.pose_fps,
                             model_cfg.audio_sr, model_cfg.joint_mask, variant="disco")
-    train_loader = _WeightedLoader(train_ds, cfg.data.train_bs, seed=cfg.seed)
+    train_loader = _WeightedLoader(train_ds, cfg.data.train_bs, seed=cfg.seed,
+                                   process_index=mesh.rank, process_count=mesh.world)
+    return model, optimizer, step_fn, train_loader
+
+
+def main():
+    from ..core.masking import MASK_DICT
+    from ..data.beat2 import BEAT2Dataset, DataLoader
+    from ..eval.test_flow import make_disco_generate
+    from . import _train_common as common
+
+    cfg, device, mesh = common.init_env("disco_audio.yaml")
+    model, optimizer, step_fn, train_loader = build_training(cfg, device, mesh)
+    model_cfg = model.config
     val_ds = BEAT2Dataset(cfg.data.test_meta_paths, "val", model_cfg.pose_fps,
                           model_cfg.audio_sr, model_cfg.joint_mask)
     val_fn = None
@@ -86,7 +101,8 @@ def main():
     test_fn = common.build_test_fn(cfg, make_disco_generate, model_cfg.pose_fps, device)
     if common.run_test_and_exit(cfg, test_fn, model):
         return
-    common.run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn)
+    common.run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn,
+               mesh)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """EMAGE trainer (counterpart of ``pantomatrix_tpu/cli/train_emage.py``): the 3-pass
 masked objective against five frozen VQ/VAE tokenizers, windowed validation FGD over
-decoded predictions, best checkpoints, on one card. The tokenizers load from
+decoded predictions, best checkpoints, on one card or several processes
+(``cli/_train_common.py``). The tokenizers load from
 ``--vq_path <root>`` (``<root>/emage_vq/{face,upper,hands,lower,global}``) or are random
 with ``--random_vq`` for smoke runs.
 
@@ -24,17 +25,43 @@ def load_suite(vq_path, random_vq, device):
     raise SystemExit("--vq_path <dir> (frozen tokenizers) or --random_vq required")
 
 
+def build_training(cfg, device, suite, mesh=None):
+    """(model, optimizer, step_fn, train_loader) of a run of ``cfg`` against the frozen
+    tokenizers ``suite``, placed on ``mesh`` (None: one process): what ``main`` trains
+    and scripts/torch_replay_check.py replays."""
+    from ..data.beat2 import BEAT2Dataset, DataLoader
+    from ..models.api import EmageAudioModel
+    from ..models.configs import EmageAudioConfig
+    from ..train.mesh import make_mesh, place_train_state
+    from ..train.steps import make_emage_train_step
+    from . import _train_common as common
+
+    mesh = make_mesh(1) if mesh is None else mesh
+    common.seed_everything(cfg.seed)
+    model_cfg = EmageAudioConfig.from_dict(cfg.model.to_dict())
+    model = EmageAudioModel(model_cfg, seed=cfg.seed, device=device)
+    model, optimizer = place_train_state(model, common.optimizer_from_config(cfg, model), mesh)
+    s = cfg.solver
+    step_fn = make_emage_train_step(
+        model, suite, optimizer, mask_schedule=cfg.get("mask_schedule", "reference"),
+        gradient_checkpointing=bool(s.get("gradient_checkpointing", False)),
+        share_audio_encoder=bool(s.get("share_audio_encoder", True)),
+        compute_dtype=s.get("compute_dtype"), seed=cfg.seed, mesh=mesh)
+    train_ds = BEAT2Dataset(cfg.data.meta_paths, "train", model_cfg.pose_fps,
+                            model_cfg.audio_sr, None, variant="emage_footcontact")
+    train_loader = DataLoader(train_ds, cfg.data.train_bs, seed=cfg.seed,
+                              process_index=mesh.rank, process_count=mesh.world)
+    return model, optimizer, step_fn, train_loader
+
+
 def main():
     import torch
 
     from ..core.rotations import axis_angle_to_rotation_6d
     from ..data.beat2 import BEAT2Dataset, DataLoader
     from ..eval.test_flow import make_emage_generate
-    from ..models.api import EmageAudioModel
-    from ..models.configs import EmageAudioConfig
     from ..models.emage import _select_decode_inputs
     from ..models.emage_vq import vq_decode
-    from ..train.steps import make_emage_train_step
     from . import _train_common as common
 
     vq_parser = argparse.ArgumentParser(add_help=False)
@@ -43,22 +70,10 @@ def main():
     vq_args, rest = vq_parser.parse_known_args()
     sys.argv = [sys.argv[0]] + rest
 
-    cfg, device = common.init_env("emage_audio.yaml")
-    common.seed_everything(cfg.seed)
-    model_cfg = EmageAudioConfig.from_dict(cfg.model.to_dict())
-    model = EmageAudioModel(model_cfg, seed=cfg.seed, device=device)
+    cfg, device, mesh = common.init_env("emage_audio.yaml")
     suite = load_suite(vq_args.vq_path, vq_args.random_vq, device)
-    optimizer = common.optimizer_from_config(cfg, model)
-    s = cfg.solver
-    step_fn = make_emage_train_step(
-        model, suite, optimizer, mask_schedule=cfg.get("mask_schedule", "reference"),
-        gradient_checkpointing=bool(s.get("gradient_checkpointing", False)),
-        share_audio_encoder=bool(s.get("share_audio_encoder", True)),
-        compute_dtype=s.get("compute_dtype"), seed=cfg.seed)
-
-    train_ds = BEAT2Dataset(cfg.data.meta_paths, "train", model_cfg.pose_fps,
-                            model_cfg.audio_sr, None, variant="emage_footcontact")
-    train_loader = DataLoader(train_ds, cfg.data.train_bs, seed=cfg.seed)
+    model, optimizer, step_fn, train_loader = build_training(cfg, device, suite, mesh)
+    model_cfg = model.config
     val_ds = BEAT2Dataset(cfg.data.test_meta_paths, "val", model_cfg.pose_fps,
                           model_cfg.audio_sr, None, variant="emage_footcontact")
 
@@ -83,7 +98,8 @@ def main():
                                    model_cfg.pose_fps, device, with_face=True)
     if common.run_test_and_exit(cfg, test_fn, model):
         return
-    common.run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn)
+    common.run(cfg, device, model, step_fn, optimizer, train_loader, val_fn, test_fn,
+               mesh)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """EMAGE motion-tokenizer (VQ/VAE suite) pretraining (counterpart of
-``pantomatrix_tpu/cli/train_emage_vq.py``), on one card.
+``pantomatrix_tpu/cli/train_emage_vq.py``), on one card or several processes
+(``cli/_train_common.py``).
 
 The reference consumes five frozen pretrained tokenizers and ships no trainer for them.
 This stage trains all five jointly on BEAT2-format motion (``train/steps.py``
@@ -108,14 +109,22 @@ def main():
     from ..data.beat2 import BEAT2Dataset, DataLoader
     from ..models.api import EmageVQModel
     from ..train.ckpt import load_train_state
+    from ..train.mesh import place_train_state
     from ..train.steps import RestartingOptimizer, make_vq_train_step, vq_usage_init
     from . import _train_common as common
 
-    cfg, device = common.init_env("emage_vq.yaml")
+    cfg, device, mesh = common.init_env("emage_vq.yaml")
     common.seed_everything(cfg.seed)
     suite = EmageVQModel.random(seed=cfg.seed, device=device)
-    optimizer = common.optimizer_from_config(cfg, suite)
     m = cfg.model
+    pose_fps, audio_sr = int(m.get("pose_fps", 30)), int(m.get("audio_sr", 16000))
+    train_ds = BEAT2Dataset(cfg.data.meta_paths, "train", pose_fps, audio_sr, None,
+                            variant="emage_footcontact")
+    if bool(m.get("data_init_codebook", True)) and not cfg.get("resume_from_checkpoint"):
+        # from the global batches on every process: the single-process codebooks
+        data_init_codebooks(suite, DataLoader(train_ds, cfg.data.train_bs, seed=cfg.seed),
+                            seed=cfg.seed)
+    suite, optimizer = place_train_state(suite, common.optimizer_from_config(cfg, suite), mesh)
     restart = bool(m.get("restart_dead_codes", True))
     if restart:
         optimizer = RestartingOptimizer(optimizer, vq_usage_init(suite))
@@ -123,22 +132,20 @@ def main():
         suite, optimizer, compute_dtype=cfg.solver.get("compute_dtype"),
         vel_weight=float(m.get("vel_weight", 1.0)), restart_dead_codes=restart,
         restart_decay=float(m.get("restart_decay", 0.99)),
-        restart_thresh=float(m.get("restart_thresh", 0.03)), seed=cfg.seed)
+        restart_thresh=float(m.get("restart_thresh", 0.03)), seed=cfg.seed, mesh=mesh)
 
-    pose_fps, audio_sr = int(m.get("pose_fps", 30)), int(m.get("audio_sr", 16000))
-    train_ds = BEAT2Dataset(cfg.data.meta_paths, "train", pose_fps, audio_sr, None,
-                            variant="emage_footcontact")
-    train_loader = DataLoader(train_ds, cfg.data.train_bs, seed=cfg.seed)
+    train_loader = DataLoader(train_ds, cfg.data.train_bs, seed=cfg.seed,
+                              process_index=mesh.rank, process_count=mesh.world)
     val_ds = BEAT2Dataset(cfg.data.test_meta_paths, "val", pose_fps, audio_sr, None,
                           variant="emage_footcontact")
-    if bool(m.get("data_init_codebook", True)) and not cfg.get("resume_from_checkpoint"):
-        data_init_codebooks(suite, train_loader, seed=cfg.seed)
     val_fn = None
     if len(val_ds):
         val_loader = DataLoader(val_ds, min(cfg.data.train_bs, len(val_ds)), shuffle=False)
         val_fn = common.windowed_fgd_val(val_loader, roundtrip_rot6d, device)
-    common.run(cfg, device, suite, step_fn, optimizer, train_loader, val_fn, None)
+    common.run(cfg, device, suite, step_fn, optimizer, train_loader, val_fn, None, mesh)
 
+    if mesh.rank != 0:  # process 0 wrote the checkpoints and exports
+        return
     # the export: the best-val suite, or the last state when no validation ran
     best_bin = os.path.join(cfg.output_dir, "ckpt", "best.bin")
     if os.path.exists(best_bin):

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.distributed import all_reduce_mean, current_batch_shard, rand_rows
+
 
 @contextlib.contextmanager
 def strict_fp32():
@@ -100,12 +102,18 @@ def batch_norm1d_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     """Train-mode BatchNorm1d over the last (channel) dim: normalize with the biased
     batch statistics. Returns (y, mean, var); the statistics are reduced in float32 under
     bfloat16/float16 activations, with the two-pass variance, as in the JAX package's
-    ``batch_norm1d`` with ``Ctx(train=True)``."""
+    ``batch_norm1d`` with ``Ctx(train=True)``.
+
+    Inside a :func:`~pantomatrix_tpu_torch.utils.distributed.batch_shard` scope the
+    statistics are the global batch's: the mean and then the variance are each this
+    process's mean all-reduced over the processes (equal blocks, so the mean of the
+    means), through an all-reduce that carries the gradient."""
     low = x.dtype in LOW_PRECISION
     xf = x.float() if low else x
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dims)
-    var = (xf - mean).square().mean(dims)
+    shard = current_batch_shard()
+    mean = all_reduce_mean(xf.mean(dims), shard)
+    var = all_reduce_mean((xf - mean).square().mean(dims), shard)
     inv = torch.rsqrt(var + eps)
     if low:
         scale = inv * weight.float()
@@ -185,10 +193,12 @@ def child_rng():
     return dropout_rng(rng.split()) if rng is not None else contextlib.nullcontext()
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool, batch_dim: int = 0) -> torch.Tensor:
     """torch nn.Dropout: the identity in eval mode or at rate 0, else inverted scaling
     with a mask drawn from the current :func:`dropout_rng` generator (raises without
-    one, as the JAX package raises without ``Ctx.rng``)."""
+    one, as the JAX package raises without ``Ctx.rng``). Under a batch shard the mask is
+    drawn for the global batch (``batch_dim`` the batch axis of ``x``) and this process
+    keeps its rows (``utils/distributed.rand_rows``)."""
     if not training or rate == 0.0:
         return x
     rng = getattr(_local, "rng", None)
@@ -196,7 +206,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         raise ValueError("train-mode dropout needs a generator: run it inside "
                          "nn.layers.dropout_rng(DropoutRng(seed, device))")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng.generator, device=x.device) < keep
+    mask = rand_rows(x.shape, rng.generator, x.device, batch_dim) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -285,7 +295,8 @@ class BatchNorm1d(nn.Module):
     ``num_batches_tracked``. Built in eval mode (running statistics); in train mode it
     normalizes with batch statistics and updates the running ones in place with momentum
     0.1 and the unbiased variance (float32 whatever the activation dtype), and counts
-    the batch, unless inside :func:`frozen_running_stats`."""
+    the batch, unless inside :func:`frozen_running_stats`. Under a batch shard the
+    statistics and the count are the global batch's (:func:`batch_norm1d_train`)."""
 
     momentum = 0.1
 
@@ -303,7 +314,8 @@ class BatchNorm1d(nn.Module):
             return batch_norm1d(x, self.running_mean, self.running_var, self.weight, self.bias)
         y, mean, var = batch_norm1d_train(x, self.weight, self.bias)
         if not getattr(_local, "frozen", False):
-            n = x.numel() // x.shape[-1]
+            shard = current_batch_shard()
+            n = x.numel() // x.shape[-1] * (shard.count if shard is not None else 1)
             m = self.momentum
             with torch.no_grad():
                 mean, unbiased = mean.detach(), var.detach() * (n / max(n - 1, 1))

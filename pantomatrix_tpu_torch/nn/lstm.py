@@ -68,7 +68,7 @@ class LSTM(nn.Module):
             w_hh = torch.stack(p("weight_hh")).float()
             y = lstm_bidirectional(x_proj.float(), w_hh, self.hidden_size).to(x_proj.dtype)
             if layer < self.num_layers - 1:
-                y = dropout(y, self.dropout, self.training)
+                y = dropout(y, self.dropout, self.training, batch_dim=1)
         return y.transpose(0, 1)
 
 

@@ -3,6 +3,11 @@ to ``max_train_steps``, a validation every ``validation_steps`` that keeps the b
 checkpoint, an optional test pass every ``test_steps``, resume with the data
 fast-forwarded inside the epoch, running loss means and a background thread that
 prepares the next batches.
+
+Multi-process (``mesh``): every process steps on its rows; the logged losses are the
+means over the processes, reduced once a log period; every process validates (as the
+JAX package does); the test pass and every checkpoint write are the main process's.
+Under FSDP every process gathers the full state before them (a collective).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from torch import nn
 
 from ..io.hf_checkpoint import save_checkpoint
 from .ckpt import BestKeeper, load_train_state
+from .mesh import fsdp_state, gather_replicated, mean_over_processes
 
 
 PREFETCH_DEPTH = 2
@@ -105,14 +111,19 @@ def run_training(loop_cfg: TrainLoopConfig, step_fn: Callable, model: nn.Module,
                  train_loader, place_batch: Callable[[dict], dict],
                  val_fn: Optional[Callable] = None, model_config=None,
                  log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
-                 is_main_process: bool = True, test_fn: Optional[Callable] = None) -> int:
+                 is_main_process: bool = True, test_fn: Optional[Callable] = None,
+                 mesh=None) -> int:
     """Run ``step_fn(batch, iteration)`` to ``max_train_steps``; returns the final
     iteration. The model and the optimizer are updated in place.
 
     ``val_fn(model, iteration) -> metric`` (lower is better) runs every
     ``validation_steps``; ``test_fn(model, iteration) -> metric dict`` (its ``fgd`` keys
     the ``test_best/`` checkpoint) every ``test_steps``. Both see the model in eval mode.
-    Checkpoints are written by the main process."""
+    Checkpoints are written by the main process. ``mesh``: the run's process mesh
+    (``train/mesh.py``); every process calls this with the same configuration.
+
+    Resume loads the checkpoint on every process, and an FSDP optimizer re-shards the
+    loaded state as the fresh run placed it (``FsdpOptimizer.load_state_dict``)."""
     iteration = 0
     best_test, best_test_embedder = float("inf"), ""
     if loop_cfg.resume_from_checkpoint:
@@ -127,6 +138,8 @@ def run_training(loop_cfg: TrainLoopConfig, step_fn: Callable, model: nn.Module,
                          "with drop_last): the step loop would never advance")
     _check_dispatch(loop_cfg, iteration)
     keeper = BestKeeper(loop_cfg.ckpt_dir, model_config)
+    fsdp = fsdp_state(optimizer)
+    device = next(model.parameters()).device
     meters = Meters()
     steps_per_epoch = len(train_loader)
     epoch, skip = divmod(iteration, steps_per_epoch)  # deterministic resume
@@ -163,7 +176,7 @@ def run_training(loop_cfg: TrainLoopConfig, step_fn: Callable, model: nn.Module,
         net_time += time.time() - t0
 
         if logging_now:
-            means = meters.means()
+            means = mean_over_processes(meters.means(), mesh, device)
             if is_main_process:
                 msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items()))
                 print(f"step {iteration}: {msg} (data {data_time:.1f}s net {net_time:.1f}s)")
@@ -172,44 +185,49 @@ def run_training(loop_cfg: TrainLoopConfig, step_fn: Callable, model: nn.Module,
             meters.reset()
 
         if val_fn is not None and iteration % loop_cfg.validation_steps == 0:
+            saved = gather_replicated(model, optimizer, mesh)
             model.eval()
             metric = float(val_fn(model, iteration))
             last_saved = iteration
             if is_main_process:
-                improved = keeper.update(metric, model, optimizer, iteration, extra())
+                improved = keeper.update(metric, model, saved, iteration, extra())
                 print(f"val @ {iteration}: metric={metric:.4f}"
                       + (" (new best)" if improved else ""))
                 if log_fn:
                     log_fn(iteration, {"val/metric": metric})
 
-        if (test_fn is not None and loop_cfg.test_steps and is_main_process
-                and iteration % loop_cfg.test_steps == 0):
-            model.eval()
-            tmetrics = test_fn(model, iteration)
-            msg = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                           for k, v in sorted(tmetrics.items()))
-            tmetric = float(tmetrics.get("fgd", float("inf")))
-            # FGD values of two embedders are not comparable (eval/metrics.py FGD)
-            embedder = str(tmetrics.get("fgd_embedder", ""))
-            if embedder != best_test_embedder:
-                if best_test != float("inf"):
-                    print(f"test: fgd embedder changed {best_test_embedder!r} -> "
-                          f"{embedder!r}; resetting test_best tracking")
-                    best_test = float("inf")
-                best_test_embedder = embedder
-            if tmetric < best_test:
-                best_test = tmetric
-                save_checkpoint(os.path.join(loop_cfg.ckpt_dir, "test_best"),
-                                model.state_dict(), model_config)
-                msg += " (new test best)"
-            print(f"test @ {iteration}: {msg}")
-            if log_fn:
-                log_fn(iteration, {f"test/{k}": float(v) for k, v in tmetrics.items()
-                                   if isinstance(v, (int, float))})
+        if test_fn is not None and loop_cfg.test_steps and iteration % loop_cfg.test_steps == 0:
+            if fsdp is not None:
+                fsdp.gather()  # a collective: every process takes part
+            if is_main_process:
+                model.eval()
+                tmetrics = test_fn(model, iteration)
+                msg = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                               for k, v in sorted(tmetrics.items()))
+                tmetric = float(tmetrics.get("fgd", float("inf")))
+                # FGD values of two embedders are not comparable (eval/metrics.py FGD)
+                embedder = str(tmetrics.get("fgd_embedder", ""))
+                if embedder != best_test_embedder:
+                    if best_test != float("inf"):
+                        print(f"test: fgd embedder changed {best_test_embedder!r} -> "
+                              f"{embedder!r}; resetting test_best tracking")
+                        best_test = float("inf")
+                    best_test_embedder = embedder
+                if tmetric < best_test:
+                    best_test = tmetric
+                    save_checkpoint(os.path.join(loop_cfg.ckpt_dir, "test_best"),
+                                    model.state_dict(), model_config)
+                    msg += " (new test best)"
+                print(f"test @ {iteration}: {msg}")
+                if log_fn:
+                    log_fn(iteration, {f"test/{k}": float(v) for k, v in tmetrics.items()
+                                       if isinstance(v, (int, float))})
 
-    if last_saved != iteration and is_main_process:
-        # the final state is always kept (an inf metric never displaces the best)
-        keeper.update(float("inf"), model, optimizer, iteration, extra())
+    if last_saved != iteration:
+        saved = gather_replicated(model, optimizer, mesh)
+        if is_main_process:
+            # the final state is always kept (an inf metric never displaces the best)
+            keeper.update(float("inf"), model, saved, iteration, extra())
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return iteration

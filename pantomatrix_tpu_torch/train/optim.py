@@ -60,6 +60,11 @@ class TrainOptimizer:
                  optimizer: str = "adam"):
         if clip_parity not in ("reference", "fixed"):
             raise ValueError(f"unknown clip_parity {clip_parity!r} (reference|fixed)")
+        self.hparams = dict(learning_rate=learning_rate, beta1=beta1, beta2=beta2, eps=eps,
+                            weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+                            clip_parity=clip_parity, lr_scheduler=lr_scheduler,
+                            warmup_steps=warmup_steps, total_steps=total_steps,
+                            optimizer=optimizer)
         self.params = [p for p in params if p.requires_grad]
         if optimizer == "sgd":
             self.optimizer = torch.optim.SGD(self.params, lr=learning_rate,
@@ -81,6 +86,11 @@ class TrainOptimizer:
     def lr(self) -> float:
         """The learning rate of the next update."""
         return self.optimizer.param_groups[0]["lr"]
+
+    def like(self, params: Iterable[torch.nn.Parameter], **overrides) -> "TrainOptimizer":
+        """A fresh optimizer of these hyperparameters over other parameters (FSDP's
+        slices, ``train/mesh.py``), with ``overrides`` applied."""
+        return TrainOptimizer(params, **{**self.hparams, **overrides})
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)

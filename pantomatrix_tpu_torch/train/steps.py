@@ -14,6 +14,15 @@ seeded by ``(seed, iteration)`` (``nn/layers.DropoutRng``), on the model's devic
 port does not reproduce ``jax.random``'s bits. ``make_multi_step`` (k steps as one TPU
 program) is not ported: ``train/loop.py`` runs the steps one by one.
 
+Multi-process (``mesh``, ``train/mesh.py``): ``batch`` holds this process's rows of the
+global batch. The step runs inside the mesh's batch-shard scope, so BatchNorm reduces
+its statistics over the global batch and every random draw is made at the global shape
+(``utils/distributed.py``); DisCo's contrastive terms and the VQ restarts' code counts
+and encoder outputs are gathered over the processes; between the backward and the
+update the gradients are averaged over the processes (``reduce_gradients``). Each
+process's losses are its rows' (the loop averages them at its log period). Without a
+process group nothing changes.
+
 ``compute_dtype="bfloat16"``: the floating parameters (and the floating buffers other
 than BatchNorm's running statistics: the positional-encoding table) are cast inside the
 differentiated computation and substituted with ``torch.func.functional_call``, so the
@@ -49,8 +58,10 @@ from ..nn.layers import (
     mix_seed,
     strict_fp32,
 )
+from ..utils.distributed import all_reduce_sum, batch_shard, gather_rows, rand_rows
 from ..utils.precision import compute_dtype_of
 from .losses import cls_loss, contrastive_loss, geodesic_loss, rec_loss
+from .mesh import Mesh, data_sharding, fsdp_state, reduce_gradients
 from .optim import TrainOptimizer
 
 BN_BUFFER_KEYS = ("running_mean", "running_var", "num_batches_tracked")
@@ -129,21 +140,30 @@ def _onednn_off():
 
 
 def _make_step(model: nn.Module, optimizer: TrainOptimizer, loss_fn,
-               dtype: Optional[torch.dtype]) -> Step:
+               dtype: Optional[torch.dtype], mesh: Optional[Mesh] = None) -> Step:
     """``loss_fn(batch, iteration) -> (loss, losses)`` as an update step.
 
     On the CPU in a low-precision dtype oneDNN is off for the step: its bfloat16
     convolution weight gradient comes back non-finite now and then on finite inputs
-    (PyTorch 2.13's CPU build; PyTorch's own kernels are used instead)."""
+    (PyTorch 2.13's CPU build; PyTorch's own kernels are used instead).
+
+    ``mesh``: the step runs in its batch-shard scope and averages the gradients over
+    the processes before the update; under FSDP it first gathers the parameters."""
+    shard = data_sharding(mesh)
+    fsdp = fsdp_state(optimizer)
+    trainable = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict[str, torch.Tensor], iteration: int) -> Dict[str, torch.Tensor]:
         model.train()
         on_cpu = next(model.parameters()).device.type == "cpu"
         no_onednn = _onednn_off() if dtype is not None and on_cpu else contextlib.nullcontext()
-        with strict_fp32(), no_onednn:
+        with strict_fp32(), no_onednn, batch_shard(shard):
+            if fsdp is not None:
+                fsdp.gather()
             loss, losses = loss_fn(batch, iteration)
             optimizer.zero_grad()
             loss.backward()
+            reduce_gradients(trainable, mesh)
             optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -168,7 +188,8 @@ def make_emage_train_step(model: nn.Module, suite: EmageVQSuite, optimizer: Trai
                           mask_schedule: str = "reference",
                           gradient_checkpointing: bool = False,
                           share_audio_encoder: bool = True,
-                          compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+                          compute_dtype: Optional[str] = None, seed: int = 0,
+                          mesh: Optional[Mesh] = None) -> Step:
     """EMAGE's 3-pass masked objective against the frozen tokenizers' targets (the
     reference's train_emage_audio.py:130-183): pass 1 with the seed mask, pass 2 with a
     random mask and audio, pass 3 with the same mask and no audio; latent MSE and code
@@ -190,10 +211,13 @@ def make_emage_train_step(model: nn.Module, suite: EmageVQSuite, optimizer: Trai
     w = dict(lu=cfg.lu, ll=cfg.ll, lh=cfg.lh, lf=cfg.lf)
     c = dict(cu=cfg.cu, cl=cfg.cl, ch=cfg.ch, cf=cfg.cf)
     encoders = ("audio_encoder_face", "audio_encoder_body")
+    shard = data_sharding(mesh)
 
     def forward_pass(params, pass_seed, audio, speaker_id, masked_motion, mask, use_audio,
                      audio_features):
-        with dropout_rng(DropoutRng(pass_seed, audio.device)):
+        # the scopes are entered inside the checkpointed function: its recomputation runs
+        # on autograd's thread, which does not see the step's thread-local scopes
+        with dropout_rng(DropoutRng(pass_seed, audio.device)), batch_shard(shard):
             return call(model, params, audio, speaker_id, masked_motion, mask,
                         use_audio=use_audio, audio_features=audio_features)
 
@@ -238,7 +262,7 @@ def make_emage_train_step(model: nn.Module, suite: EmageVQSuite, optimizer: Trai
 
         ratio = mask_ratio_schedule(float(iteration), mask_schedule)
         g = torch.Generator(masked_motion.device).manual_seed(mix_seed(seed0, 4))
-        mask2 = (torch.rand(masked_motion.shape, generator=g, device=masked_motion.device)
+        mask2 = (rand_rows(masked_motion.shape, g, masked_motion.device)
                  < ratio).to(masked_motion.dtype)
         pred = run_pass(params, mix_seed(seed0, 2), audio, speaker_id, masked_motion, mask2,
                         True, features)
@@ -252,11 +276,12 @@ def make_emage_train_step(model: nn.Module, suite: EmageVQSuite, optimizer: Trai
         losses["all"] = sum(losses.values())
         return losses["all"], losses
 
-    return _make_step(model, optimizer, loss_fn, dtype)
+    return _make_step(model, optimizer, loss_fn, dtype, mesh)
 
 
 def make_camn_train_step(model: nn.Module, optimizer: TrainOptimizer,
-                         compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+                         compute_dtype: Optional[str] = None, seed: int = 0,
+                         mesh: Optional[Mesh] = None) -> Step:
     """CaMN's geodesic objective on rot6d (the reference's train_camn_audio.py:91-116):
     the ground truth's first frames seed the model. Losses: loss (= all_loss)."""
     cfg = model.config
@@ -272,7 +297,7 @@ def make_camn_train_step(model: nn.Module, optimizer: TrainOptimizer,
         loss = _geodesic(pred["motion"], rot6d)
         return loss, {"loss": loss, "all_loss": loss}
 
-    return _make_step(model, optimizer, loss_fn, dtype)
+    return _make_step(model, optimizer, loss_fn, dtype, mesh)
 
 
 def _normalize_time(x: torch.Tensor) -> torch.Tensor:
@@ -281,10 +306,16 @@ def _normalize_time(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_disco_train_step(model: nn.Module, optimizer: TrainOptimizer,
-                          compute_dtype: Optional[str] = None, seed: int = 0) -> Step:
+                          compute_dtype: Optional[str] = None, seed: int = 0,
+                          mesh: Optional[Mesh] = None) -> Step:
     """DisCo's geodesic loss plus the rhythm and content contrastive losses on features
     normalized along time (the reference's train_disco_audio.py:129-170). Losses: loss,
-    rhythm, content and their sum, all_loss."""
+    rhythm, content and their sum, all_loss.
+
+    The contrastive terms pair every row with every other of the global batch: under a
+    mesh the features are gathered over the processes with their gradient, so each
+    process computes the global terms, and its rows receive the sum over the processes
+    of their gradient, which the gradient average turns into the global batch's."""
     cfg = model.config
     dtype = compute_dtype_of(compute_dtype)
 
@@ -296,14 +327,15 @@ def make_disco_train_step(model: nn.Module, optimizer: TrainOptimizer,
                         seed_frames=cfg.seed_frames, seed_motion=_cast(dtype, rot6d),
                         return_axis_angle=False)
         losses = {"loss": _geodesic(pred["motion"], rot6d)}
-        losses["rhythm"] = contrastive_loss(_normalize_time(pred["audio_fea_r"].float()),
-                                            batch["rhythm_label"])
-        losses["content"] = contrastive_loss(_normalize_time(pred["audio_fea_c"].float()),
-                                             batch["content_label"])
+        for name, fea in (("rhythm", "audio_fea_r"), ("content", "audio_fea_c")):
+            losses[name] = contrastive_loss(
+                gather_rows(_normalize_time(pred[fea].float()), shard),
+                gather_rows(batch[f"{name}_label"], shard))
         losses["all_loss"] = sum(losses.values())
         return losses["all_loss"], losses
 
-    return _make_step(model, optimizer, loss_fn, dtype)
+    shard = data_sharding(mesh)
+    return _make_step(model, optimizer, loss_fn, dtype, mesh)
 
 
 def vq_global_vae_target(lower_stream: torch.Tensor) -> torch.Tensor:
@@ -364,7 +396,7 @@ class RestartingOptimizer:
 def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[str] = None,
                        vel_weight: float = 1.0, restart_dead_codes: bool = False,
                        restart_decay: float = 0.99, restart_thresh: float = 0.03,
-                       seed: int = 0) -> Step:
+                       seed: int = 0, mesh: Optional[Mesh] = None) -> Step:
     """Pretrain the five EMAGE tokenizers jointly (the JAX ``make_vq_train_step``).
 
     Per part VQ-VAE (face, upper, hands, lower): ``rec_{part}``, the MSE on the part
@@ -382,8 +414,14 @@ def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[s
     generator seeded from (seed, iteration, part) (the same picks on every device; not
     ``jax.random``'s), their usage is reset to 1/K, and ``restarted_{part}`` counts
     them. The optimizer's moments of a restarted row are left as they are, as in the
-    JAX step."""
+    JAX step.
+
+    Under a mesh the code counts are summed and the encoder outputs gathered over the
+    processes in rank order (the single process's row order), so every process takes
+    the same restart decision and picks as one process would; under FSDP each process
+    writes the picks into the codebook slice it holds."""
     dtype = compute_dtype_of(compute_dtype)
+    shard = data_sharding(mesh)
     if restart_dead_codes and not isinstance(optimizer, RestartingOptimizer):
         raise TypeError("restart_dead_codes needs RestartingOptimizer(optimizer, "
                         "vq_usage_init(suite))")
@@ -412,8 +450,10 @@ def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[s
             if restart_dead_codes:
                 z = out["pre_latent"].detach().float()
                 k = getattr(suite, part).quantizer.embedding.weight.shape[0]
-                counts = torch.bincount(out["indices"].reshape(-1).long(), minlength=k)
-                aux[part] = (counts.float(), z.reshape(-1, z.shape[-1]))
+                counts = torch.bincount(out["indices"].reshape(-1).long(), minlength=k).float()
+                zpool = gather_rows(z.reshape(-1, z.shape[-1]), shard)
+                aux[part] = (counts if shard is None else all_reduce_sum(counts, shard.group),
+                             zpool)
         g_rec = call(suite.global_motion, sub_params(params, "global_motion"),
                      _cast(dtype, streams["lower"]))["rec_pose"]
         total = total + rec_terms(losses, g_rec, vq_global_vae_target(streams["lower"]),
@@ -421,9 +461,10 @@ def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[s
         losses["all_loss"] = total
         return total, losses
 
-    base = _make_step(suite, optimizer, loss_fn, dtype)
+    base = _make_step(suite, optimizer, loss_fn, dtype, mesh)
     if not restart_dead_codes:
         return base
+    fsdp = fsdp_state(optimizer)
 
     @torch.no_grad()
     def restart(losses, iteration):
@@ -431,13 +472,16 @@ def make_vq_train_step(suite: EmageVQSuite, optimizer, compute_dtype: Optional[s
         for i, part in enumerate(PARTS):
             counts, zpool = aux.pop(part)
             weight = getattr(suite, part).quantizer.embedding.weight
-            k = weight.shape[0]
+            k = optimizer.usage[part].shape[0]
             u = (restart_decay * optimizer.usage[part]
                  + (1.0 - restart_decay) * (counts / counts.sum().clamp_min(1.0)))
             dead = u < restart_thresh / k
             g = torch.Generator().manual_seed(mix_seed(seed0, i))
             pick = torch.randint(0, zpool.shape[0], (k,), generator=g).to(zpool.device)
-            weight.copy_(torch.where(dead[:, None], zpool[pick].to(weight.dtype), weight))
+            picked = zpool[pick].to(weight.dtype)
+            held, part_of = (weight, lambda t: t) if fsdp is None else fsdp.held(weight)
+            held.copy_(torch.where(part_of(dead[:, None].expand_as(picked)), part_of(picked),
+                                   held))
             optimizer.usage[part].copy_(torch.where(dead, torch.full_like(u, 1.0 / k), u))
             optimizer.dead[part] = dead
             losses[f"restarted_{part}"] = dead.float().sum()

@@ -2,6 +2,7 @@
 scripts import neither JAX nor the JAX package, directly or through anything they
 import."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -22,14 +23,10 @@ def _is_forbidden(name: str) -> bool:
 
 
 def _port_files():
+    # chip_smoke.py runs the tiny multi-process runs of tests/_torch_mp_runs.py
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_profile_emage.py"),
-             os.path.join(REPO, "scripts", "torch_profile_lstm.py"),
-             os.path.join(REPO, "scripts", "torch_profile_k2_phases.py"),
-             os.path.join(REPO, "scripts", "torch_k1_sweep.py"),
-             os.path.join(REPO, "scripts", "torch_make_synth_beat2.py"),
-             os.path.join(REPO, "scripts", "torch_export_vq_suite.py"),
-             os.path.join(REPO, "scripts", "torch_vq_bound.py")]
+             os.path.join(REPO, "tests", "_torch_mp_runs.py")]
+    files += sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
