@@ -54,13 +54,13 @@ Phases, each of which raises on failure (nothing is caught):
      features: fp32 within 1e-5, bf16 within one bf16 ulp, head indices equal, bitwise
      equality logged, K1 counted once per replay; CUDA-event ms per window of each; then
      the wall of EMAGE 8 x 20 s and 128 x 60 s (inference + decode) with graphs against
-     the eager loop, in turns, in each mode, with the device's idle share (kernel time
-     under torch.profiler over the unprofiled median wall);
+     the eager loop, in turns, in each mode, with the device's idle share of the graph
+     paths at 8 x 20 s (kernel time under torch.profiler over the unprofiled median wall);
  14. streaming: StreamingEmageGenerator at batch 1 against offline emage_inference
      (latents within 1e-5, head indices and frame count equal); a StreamingPool of 8
      uneven sessions (frame counts equal to offline, first-window latents correlated
      > 0.999 with the single stream, each session's translation continuing from its own
-     previous chunk); the bench_stream protocol at N = 1, 8, 32, 64 in fp32 and bf16;
+     previous chunk); the bench_stream protocol at N = 1 and 64 in fp32 and bf16;
  15. the daemon: MotionServer on 127.0.0.1, two MotionClients over HTTP with 3 s of
      audio each, frames as expected and finite, equal to an in-process StreamingPool;
  16. SequenceGenerator for CaMN and DisCo at batch 8 (8 and 4 K2 launches), python -m
@@ -82,14 +82,14 @@ Phases, each of which raises on failure (nothing is caught):
      evaluate_clips on the card against the CPU (FGD, L1div, LVD, MSE within 1e-4
      relative, BC equal). It writes outputs/chip_smoke_eval.json;
  18. training: (a) K2 under autograd (ops/lstm_cuda.LstmLayerFunction) at the K2 test
-     shapes, the CaMN training shape (64, 64, 512) and cli.bench_train's (128, 64, 512)
+     shapes, the CaMN training shape (64, 64, 512) and cli.bench_train's (127, 64, 512)
      (phase 19e): the forward bitwise equal to
      lstm_bidirectional, the x_proj and w_hh gradients equal to the plain version's
      autograd (1e-6) and no further from a float64 run than twice the plain fp32
      gradients plus 1e-6; CUDA-event ms of the forward, the recompute backward, a layer
      with its projection, and cuDNN's nn.LSTM forward and forward + backward; (b) one SGD
      step (iteration 1, TF32 off) of tiny CaMN, DisCo and EMAGE on the CPU and on the
-     card: losses within 1e-5 relative, parameters 1e-4, BatchNorm buffers 1e-5; (c) 12
+     card: losses within 1e-5 relative, parameters 1e-4, BatchNorm buffers 1e-5; (c) 6
      Adam steps at the shipped learning rate on one fixed batch at full width,
      CamnAudioConfig() and DiscoAudioConfig() at 64 x 128 frames, EmageAudioConfig() at
      56 x 64 frames with random tokenizers, in fp32 and bf16: finite losses, the last
@@ -107,7 +107,7 @@ Phases, each of which raises on failure (nothing is caught):
      at frames whose float64 velocity lies within 1e-6 relative of the threshold (counted
      and reported); (b) one SGD step of a tiny tokenizer suite with dead-code restarts
      from the same usage state on the CPU and on the card: losses 1e-5 relative,
-     parameters 1e-4, dead masks equal, usage within 1e-7; (c) 20 Adam steps at the
+     parameters 1e-4, dead masks equal, usage within 1e-7; (c) 10 Adam steps at the
      shipped learning rate of the five tokenizers at init_vq_suite widths on one batch of
      64 x 64 frames, restarts on, in fp32 and bf16: finite losses, the last below the
      first, K1 and K2 never launched; median ms a step, peak memory, kernels a step and
@@ -146,8 +146,29 @@ Phases, each of which raises on failure (nothing is caught):
      steps at the full-width cells, tests/test_torch_multiprocess.py's bounds); (b) the
      tiny EMAGE (plain and FSDP, with process 0's test pass) and DisCo CLI runs of that
      test file (tests/_torch_mp_runs.py), two processes sharing the card over gloo (NCCL
-     with two cards or more) against one, process 1 writing no checkpoint; (c) dryrun_multichip(2, device="cuda"), while (b) runs. It
-     writes outputs/chip_smoke_multiprocess.json.
+     with two cards or more) against one, process 1 writing no checkpoint; (c)
+     dryrun_multichip(2, device="cuda"); (a)'s CLI runs, (b) and (c) run at once. It
+     writes outputs/chip_smoke_multiprocess.json;
+ 22. the last gaps: (a) cli.bench_train for CaMN fp32 (64 x 128, --k 2 --repeats 1) under
+     torch.distributed.run --nproc_per_node 1, one process over NCCL: its line beside
+     phase 19e's in-process one, processes 1, K2 8 a step, mfu < 1, k2_forward_flops = 8
+     launches x lstm_cuda.layer_flops(127, 64, 512); (b) cli.bench_train for DisCo fp32 at
+     8 x 32 under --nproc_per_node 2, two processes sharing the card over gloo: processes
+     2, cards 1, K2 4 a step on each, a finite last_loss; (c) the EMAGE train-step ladder of
+     scripts/torch_profile_train.py (its run_ladder, without the profiled step) in fp32 at
+     8 x 64 frames, --k 1 --repeats 1, every rung: finite, L5's first-step losses within
+     1e-6 relative of the shipped step's, no K1 launch; (d) the
+     Euler-angle, quaternion-algebra and random-rotation helpers on the card against the
+     CPU within 1e-5, all 12 conventions. (a) runs alone, then (b) while (c) and (d) run.
+     It writes outputs/chip_smoke_gaps.json.
+Depth cut to keep the whole run inside its limit (with phase 22): phase 13 times the
+128 x 60 s calls in 2 turns (3 before) and profiles only the graph paths at 8 x 20 s (all
+six, and the graph paths at 128 x 60 s, before), phase 14 sweeps bench_stream at N = 1
+and 64 (1, 8, 32, 64 before), phase 16 runs the bench at --reps 2 --iters 1 (3 and 2
+before), phase 17 runs its five CLI runs at once, phase 18d its three families' CLI runs
+at once and phase 21 its world-1 CLIs beside (b) and (c) (one after another before; their
+walls are concurrent ones), phase 18c takes 6 Adam steps a cell (12 before), phase 19c 10
+VQ steps (20 before). Every check keeps its bound and every kernel shape stays checked.
 It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
@@ -195,7 +216,9 @@ K1_HEADLINE = (128 * 1800, 256, 256)
 # per-step latency floor
 K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
                   (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512)]
-K2_BENCH_SHAPE = (128, 64, 512)  # cli.bench_train's CaMN/DisCo batch: 64 x 128 frames
+# cli.bench_train's CaMN/DisCo batch: 64 clips x 128 frames at 15 fps, 127 LSTM steps from
+# the WavEncoder (wav_encoder_out_len)
+K2_BENCH_SHAPE = (127, 64, 512)
 K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512), (960, 1, 512), K2_BENCH_SHAPE]
 K2_FLOOR_SHAPE = (421, 1, 512)
 K2_HEADLINE = (421, 64, 512)
@@ -974,6 +997,8 @@ GRAPH_BATCHES = (8, 128)
 GRAPH_MODES = {"fp32": (None, False), "bf16": ("bfloat16", False),
                "bf16_batched_wav": ("bfloat16", True)}
 GRAPH_FP32_ATOL = 1e-5
+GRAPH_LONG_REPS = 2  # turns of the 128 x 60 s calls
+PUMP_SESSIONS = (1, 64)  # bench_stream's N
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1067,7 +1092,7 @@ def phase_graph(card, model, vq):
             del want, got, net, last, ins, feats
 
     # the AR call with graphs (emage_inference) against the eager loop, in turns
-    for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, 3)):
+    for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, GRAPH_LONG_REPS)):
         audio = (torch.rand(bs, seconds * 16000, generator=g) - 0.5).cuda()
         spk = torch.zeros((bs, 1), dtype=torch.long, device="cuda")
         zero = torch.zeros(1, 3, device="cuda")
@@ -1093,9 +1118,9 @@ def phase_graph(card, model, vq):
         for name, stats in walls.items():
             row = {"cell": f"EMAGE {bs} x {seconds} s", "path": name, "wall_s": stats,
                    "realtime_factor": bs * seconds / stats["median"], "card": card}
-            if (bs, seconds) == BF16_EMAGE_CELLS[0] or name.endswith("graph"):
-                # profiling a 128 x 60 s call costs seconds of host time per path: there
-                # only the graph paths (the eager ones' idle share is in PERF.md)
+            if (bs, seconds) == BF16_EMAGE_CELLS[0] and name.endswith("graph"):
+                # profiling a call costs seconds of host time per path: only the graph
+                # paths at 8 x 20 s (the other idle shares are in PERF.md)
                 kernel_ms, traced = profiled_kernel_ms(calls[name])
                 row.update(profiled_kernel_ms=kernel_ms, kernels_traced=traced,
                            device_idle_share=1 - kernel_ms / 1e3 / stats["median"])
@@ -1186,7 +1211,7 @@ def phase_streaming(card, model, vq):
     # the bench_stream protocol, swept over N in both modes
     result["pump"] = []
     for dtype in (None, "bfloat16"):
-        for n in (1, 8, 32, 64):
+        for n in PUMP_SESSIONS:
             line = bench_pool(model, vq, n, 10, dtype)
             line.update(compute_dtype=dtype or "float32", card=card)
             result["pump"].append(line)
@@ -1276,8 +1301,8 @@ def phase_rest(card):
         result[f"{name}_k2_launches"] = lstm_cuda.launches
         log(f"SequenceGenerator {name}: 8 clips in one batch-8 bucket, K2 launches "
             f"{lstm_cuda.launches}")
-    r = subprocess.run([sys.executable, "-m", "pantomatrix_tpu_torch.bench", "--reps", "3",
-                        "--iters", "2"], cwd=str(HERE), capture_output=True, text=True,
+    r = subprocess.run([sys.executable, "-m", "pantomatrix_tpu_torch.bench", "--reps", "2",
+                        "--iters", "1"], cwd=str(HERE), capture_output=True, text=True,
                        timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"bench failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
@@ -1449,6 +1474,8 @@ def metrics_agree(got: dict, want: dict) -> dict:
 def phase_eval(card):
     """17. Evaluation: the CLI five times, then the generate functions with the kernels
     counted, and evaluate_clips on the card against the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pantomatrix_tpu_torch.core.motion_rep import get_motion_rep
     from pantomatrix_tpu_torch.core.rotations import axis_angle_to_rotation_6d
     from pantomatrix_tpu_torch.core.smplx import load_smplx
@@ -1469,13 +1496,16 @@ def phase_eval(card):
             f"F = {SMPLX_F}, checkpoints written in {result['setup_s']:.1f} s")
         meta = ["--meta", data["meta"]]
         root_flags = ["--beat2_root", str(data["beat2"])]
-        result["cli"] = [
-            run_evaluate_cli(data, "emage", root_flags, root / "out_emage"),
-            run_evaluate_cli(data, "emage", root_flags + ["--vq_roundtrip"], root / "out_rt"),
-            run_evaluate_cli(data, "camn", meta, root / "out_camn"),
-            run_evaluate_cli(data, "disco", meta, root / "out_disco"),
-            run_evaluate_cli(data, "disco", meta, root / "out_stats", with_fgd=False),
-        ]
+        # the five runs share the card at once: their walls are concurrent ones
+        runs = [("emage", root_flags, "out_emage", True),
+                ("emage", root_flags + ["--vq_roundtrip"], "out_rt", True),
+                ("camn", meta, "out_camn", True), ("disco", meta, "out_disco", True),
+                ("disco", meta, "out_stats", False)]
+        t0 = time.time()
+        with ThreadPoolExecutor(len(runs)) as pool:
+            result["cli"] = list(pool.map(
+                lambda r: run_evaluate_cli(data, r[0], r[1], root / r[2], with_fgd=r[3]), runs))
+        result["cli_s"] = time.time() - t0
 
         test_list = test_flow.unique_test_clips([data["meta"]])
         wave0, wave1 = (torch.from_numpy(load_audio(m["audio_path"]))[None]
@@ -1628,7 +1658,7 @@ def phase_eval(card):
 # ---------------------------------------------------------------------------
 
 TRAIN_K2_SHAPE = (64, 64, 512)  # CaMN's shipped clip: 128 frames at 30 fps, read at 15
-TRAIN_STEPS = 12  # 20 until the smoke grew a visualization phase; cut to keep its time
+TRAIN_STEPS = 6
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-4
 TRAIN_BUFFER_ATOL = 1e-5
@@ -1918,12 +1948,14 @@ def phase_train_cli(card):
     from pantomatrix_tpu_torch.data.beat2 import BEAT2Dataset, DataLoader, to_device
     from pantomatrix_tpu_torch.data.device_data import DeviceResidentLoader
 
+    from concurrent.futures import ThreadPoolExecutor
+
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         metas = write_train_data(root / "beat2")
-        for family, meta, flags in (("camn", metas["camn"], ()), ("disco", metas["camn"], ()),
-                                    ("emage", metas["emage"], ("--random_vq",))):
+
+        def debug_run(family, meta, flags):
             run = run_train_cli(family, meta, root / family, ("--debug", *flags))
             if "device-resident data: staged" not in run["stdout"] or run["steps"] != [1, 2, 3, 4]:
                 raise AssertionError(f"train_{family} --debug: steps {run['steps']}\n"
@@ -1941,6 +1973,13 @@ def phase_train_cli(card):
                                          f"{resumed['stdout']}")
                 result["camn_resume"] = {"wall_s": resumed["wall_s"], "steps": resumed["steps"]}
                 log(f"CLI train_camn resumed from step 4: metrics steps {resumed['steps']}")
+
+        # the three families' runs share the card at once: their walls are concurrent ones
+        with ThreadPoolExecutor(3) as pool:
+            for f in [pool.submit(debug_run, family, meta, flags) for family, meta, flags in (
+                    ("camn", metas["camn"], ()), ("disco", metas["camn"], ()),
+                    ("emage", metas["emage"], ("--random_vq",)))]:
+                f.result()
         checked = {}
         for variant, fps, mask, meta in (("base", 15, "local_upper", metas["camn"]),
                                          ("disco", 15, "local_upper", metas["camn"]),
@@ -1978,7 +2017,7 @@ PREP_FRAMES = 20 * 30
 FOOT_THRESHOLD = 0.01
 FOOT_NEAR_REL = 1e-6  # a float64 velocity this close (relative) to the threshold: a near-tie
 VQ_CELL = (64, 64)  # the shipped emage_vq.yaml: train_bs 64, pose_length 64
-VQ_STEPS = 20
+VQ_STEPS = 10
 VQ_LR = 2e-4  # the shipped learning rate
 VQ_TINY = dict(vae_length=16, vae_codebook_size=16)
 VQ_PARAM_ATOL = 1e-4
@@ -2821,8 +2860,8 @@ def mp_two_ranks(root: Path, card) -> dict:
 
 def phase_multiprocess(card):
     """21. Multi-process training: (a) world 1 over NCCL in process and through the CLIs,
-    (b) two processes of the tiny runs, (c) dryrun_multichip(2, device="cuda"), (b) and
-    (c) at once."""
+    (b) two processes of the tiny runs, (c) dryrun_multichip(2, device="cuda"); (a)'s
+    CLIs, (b) and (c) at once."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2852,17 +2891,188 @@ def phase_multiprocess(card):
                             for f in MP_CELLS}
     finally:
         dist.destroy_process_group()
-    with tempfile.TemporaryDirectory() as tmp:
-        result["world1_cli"] = mp_world1_clis(Path(tmp), card)
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
         t1 = time.time()
+        (Path(tmp) / "world1").mkdir()
+        (Path(tmp) / "two").mkdir()
+        clis = pool.submit(mp_world1_clis, Path(tmp) / "world1", card)
         dryrun = pool.submit(dryrun_multichip, 2, "cuda")
-        result["two_processes"] = mp_two_ranks(Path(tmp), card)
+        result["two_processes"] = mp_two_ranks(Path(tmp) / "two", card)
         result["dryrun"] = dryrun.result()
-        result["two_processes_and_dryrun_s"] = time.time() - t1
+        result["world1_cli"] = clis.result()
+        result["clis_two_processes_and_dryrun_s"] = time.time() - t1
     log(f"multi-process 21c dryrun_multichip(2, cuda): {json.dumps(result['dryrun'])}")
     result["seconds"] = time.time() - t0
     log(f"multi-process phase: {result['seconds']:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# 22. the last gaps: bench_train over processes, the ladder, the rotation helpers
+# ---------------------------------------------------------------------------
+
+GAPS_BENCH_CAMN = ("--family", "camn", "--dtype", "float32", "--k", "2", "--repeats", "1")
+GAPS_BENCH_DISCO = ("--family", "disco", "--dtype", "float32", "--batch", "8", "--frames",
+                    "32", "--k", "2", "--repeats", "1")
+GAPS_LADDER_BATCH = (8, 64)  # clips x frames of 22c's ladder (the script's is 56 x 64)
+GAPS_ROT_ATOL = 1e-5
+GAPS_L5_RTOL = 1e-6
+
+
+def run_bench_train_torchrun(nproc: int, flags) -> dict:
+    """``python -m torch.distributed.run --nproc_per_node nproc -m
+    pantomatrix_tpu_torch.cli.bench_train ...`` (its processes take the card, and pick
+    gloo where more processes than cards share it): the one JSON line, and the wall."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "localhost", "--master_port", str(mp_runs().free_port()),
+           "-m", "pantomatrix_tpu_torch.cli.bench_train", *flags]
+    env = dict(os.environ, PYTHONPATH=str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=str(HERE), env=env, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"bench_train under torchrun x {nproc} failed ({r.returncode}):\n"
+                           f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    lines = []
+    for text in r.stdout.splitlines():
+        if text.startswith("{"):
+            lines.append(json.loads(text))
+    if len(lines) != 1:
+        raise AssertionError(f"bench_train under torchrun x {nproc}: {len(lines)} JSON lines\n"
+                             f"{r.stdout[-4000:]}")
+    return dict(lines[0], wall_s=wall)
+
+
+def gaps_bench_nccl(card, in_process: dict) -> dict:
+    """22a. cli.bench_train for CaMN fp32 as one process over NCCL under torchrun, beside
+    phase 19e's in-process line: K2 8 a step, its forward FLOPs added to the count."""
+    from pantomatrix_tpu_torch.ops.lstm_cuda import layer_flops
+
+    a = run_bench_train_torchrun(1, GAPS_BENCH_CAMN)
+    want_k2 = TRAIN_K2_PER_STEP["camn"] * layer_flops(*K2_BENCH_SHAPE)
+    if not (a["processes"] == 1 and a["backend"] == "nccl" and a["cards"] == 1
+            and a["k2_launches_per_step"] == 8 and a["k2_launches_per_step_by_process"] == [8]
+            and a["mfu"] < 1 and a["k2_forward_flops"] == want_k2 and a["k1_launches"] == 0
+            and np.isfinite(a["last_loss"]) and a["card"] == card):
+        raise AssertionError(f"bench_train CaMN, 1 process over NCCL: {a} (K2 forward "
+                             f"FLOPs want {want_k2})")
+    log(f"22a bench_train camn fp32, 1 process over NCCL: {a['ms_per_step']:.1f} ms a step "
+        f"(in process, phase 19e: {in_process['ms_per_step']:.1f}), mfu {a['mfu']:.4f} "
+        f"(19e: {in_process['mfu']:.4f}), K2 forward {a['k2_forward_flops'] / 1e9:.1f} GFLOP "
+        f"of {a['flops_per_step'] / 1e9:.1f}; {json.dumps(a)}")
+    return a
+
+
+def gaps_bench_gloo(card) -> dict:
+    """22b. cli.bench_train for DisCo fp32 at 8 x 32 as two processes sharing the card
+    over gloo under torchrun: K2 4 a step on each."""
+    b = run_bench_train_torchrun(2, GAPS_BENCH_DISCO)
+    if not (b["processes"] == 2 and b["cards"] == 1 and b["backend"] == "gloo"
+            and b["local_batch"] == 4 and b["k2_launches_per_step_by_process"] == [4, 4]
+            and np.isfinite(b["last_loss"]) and b["mfu"] < 1 and b["card"] == card):
+        raise AssertionError(f"bench_train DisCo, 2 processes sharing the card: {b}")
+    log(f"22b bench_train disco fp32 8 x 32, 2 processes sharing the card over gloo: "
+        f"{json.dumps(b)}")
+    return b
+
+
+def gaps_ladder(card) -> dict:
+    """22c. The EMAGE train-step ladder of scripts/torch_profile_train.py in fp32 at
+    GAPS_LADDER_BATCH, --k 1 --repeats 1, every rung once (not profiled: the profile is
+    the script's own run): finite, L5's first-step losses equal to the shipped step's
+    (GAPS_L5_RTOL), no K1 launch."""
+    from pantomatrix_tpu_torch.cli.bench_train import _emage_batch
+    from pantomatrix_tpu_torch.models.api import EmageAudioModel, EmageVQModel
+    from pantomatrix_tpu_torch.models.configs import EmageAudioConfig
+    from pantomatrix_tpu_torch.ops import lstm_cuda, vq_cuda
+
+    ladder = load_script("torch_profile_train")
+    model = EmageAudioModel(EmageAudioConfig(), seed=0, device="cuda")
+    suite = EmageVQModel.random(seed=1, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _emage_batch(np.random.RandomState(0), *GAPS_LADDER_BATCH).items()}
+    vq_cuda.launches = lstm_cuda.launches = 0
+    rows = ladder.run_ladder(model, suite, batch, range(len(ladder.RUNGS)), k=1, repeats=1,
+                             emit=lambda line: log(f"22c ladder {line}"), profile=False)
+    k1, k2 = vq_cuda.launches, lstm_cuda.launches
+    l5, shipped = (rows[ladder.RUNGS[i]]["first_step_losses"] for i in (5, ladder.SHIPPED))
+    rel = max(abs(l5[k] - v) / max(abs(v), 1e-30) for k, v in shipped.items())
+    finite = all(np.isfinite(v) for r in rows.values() for v in r["first_step_losses"].values())
+    result = {"batch": GAPS_LADDER_BATCH, "rungs": rows, "l5_vs_shipped_rel": rel,
+              "k1_launches": k1, "k2_launches": k2, "card": card}
+    if not (list(rows) == list(ladder.RUNGS) and set(l5) == set(shipped)
+            and rel <= GAPS_L5_RTOL and finite and k1 == 0 and k2 == 0):
+        raise AssertionError(f"ladder: L5 vs shipped rel {rel}, finite {finite}, K1 {k1}, "
+                             f"K2 {k2}: {rows}")
+    log(f"22c ladder fp32 {GAPS_LADDER_BATCH[0]} x {GAPS_LADDER_BATCH[1]}: L5 first-step "
+        f"losses within {rel:.1e} of the shipped step's, K1 {k1}")
+    del model, suite, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def gaps_rotations() -> dict:
+    """22d. The Euler-angle, quaternion-algebra and random-rotation helpers on the card
+    against the CPU (GAPS_ROT_ATOL)."""
+    from pantomatrix_tpu_torch.core import rotations as rot
+
+    g = torch.Generator().manual_seed(22)
+    errs = {}
+
+    def check(name, fn, *args):
+        got = fn(*[a.cuda() if torch.is_tensor(a) else a for a in args]).cpu()
+        errs[name] = float((got - fn(*args)).abs().max())
+
+    for conv in ("XYZ", "XZY", "YXZ", "YZX", "ZXY", "ZYX", "XYX", "XZX", "YXY", "YZY", "ZXZ",
+                 "ZYZ"):
+        mid = (-1.2, 1.2) if len(set(conv)) == 3 else (0.2, 2.9)
+        euler = torch.stack([torch.rand(256, generator=g) * 6 - 3,
+                             torch.rand(256, generator=g) * (mid[1] - mid[0]) + mid[0],
+                             torch.rand(256, generator=g) * 6 - 3], -1)
+        check(f"euler_angles_to_matrix {conv}", rot.euler_angles_to_matrix, euler, conv)
+        check(f"matrix_to_euler_angles {conv}", rot.matrix_to_euler_angles,
+              rot.euler_angles_to_matrix(euler, conv), conv)
+    qa, qb = rot.random_quaternions(256, g), rot.random_quaternions(256, g)
+    pts = torch.randn(256, 3, generator=g)
+    for name, fn, args in (("quaternion_raw_multiply", rot.quaternion_raw_multiply, (qa, qb)),
+                           ("quaternion_multiply", rot.quaternion_multiply, (qa, qb)),
+                           ("quaternion_invert", rot.quaternion_invert, (qa,)),
+                           ("standardize_quaternion", rot.standardize_quaternion, (qa,)),
+                           ("quaternion_apply", rot.quaternion_apply, (qa, pts))):
+        check(name, fn, *args)
+    m = rot.random_rotations(1024, torch.Generator("cuda").manual_seed(22), device="cuda")
+    errs["random_rotations det - 1"] = float((torch.linalg.det(m) - 1).abs().max())
+    errs["random_rotations m m^T - I"] = float(
+        (m @ m.transpose(-1, -2) - torch.eye(3, device="cuda")).abs().max())
+    bad = {k: v for k, v in errs.items() if not v <= GAPS_ROT_ATOL}
+    if bad:
+        raise AssertionError(f"rotation helpers on the card against the CPU: {bad}")
+    log(f"22d rotation helpers, card against CPU: max abs err {max(errs.values()):.2e} "
+        f"over {len(errs)} checks")
+    return errs
+
+
+def phase_gaps(card, bench_in_process: list) -> dict:
+    """22. The last gaps: (a, b) cli.bench_train under torchrun, (c) the EMAGE train-step
+    ladder, (d) the rotation helpers; (a) alone (its ms sits beside phase 19e's), then (b)
+    while (c) and (d) run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.time()
+    camn_19e = next(r for r in bench_in_process
+                    if r["family"] == "camn" and r["dtype"] == "float32")
+    result = {"card": card,
+              "bench_train": {"camn_in_process": camn_19e,
+                              "camn_nccl_1": gaps_bench_nccl(card, camn_19e)}}
+    with ThreadPoolExecutor(1) as pool:
+        gloo = pool.submit(gaps_bench_gloo, card)
+        result["ladder"] = gaps_ladder(card)
+        result["rotations"] = gaps_rotations()
+        result["bench_train"]["disco_gloo_2"] = gloo.result()
+    result["seconds"] = time.time() - t0
+    log(f"last-gaps phase: {result['seconds']:.1f} s")
     return result
 
 
@@ -2954,6 +3164,10 @@ def main():
     multiprocess = phase_multiprocess(card)
     mark("21 multi-process")
     (out_dir / "chip_smoke_multiprocess.json").write_text(json.dumps(multiprocess, indent=1))
+    # 22. the last gaps (counts K2 launches in bench_train's processes under torchrun)
+    gaps = phase_gaps(card, pretrain["bench_train"])
+    mark("22 last gaps")
+    (out_dir / "chip_smoke_gaps.json").write_text(json.dumps(gaps, indent=1))
 
     head = next(r for r in k1_rows if tuple(r["shape"]) == K1_HEADLINE)
     k1_rows = k1_rows + pretrain["vq_cli"]["train_emage_on_export"]["k1_by_shape"]
@@ -3025,6 +3239,12 @@ def main():
         "launches_multiprocess": {
             f"{f} train step, world 1 over NCCL": c["k2_launches_per_step"]
             for f, c in multiprocess["world1"].items()},
+        "launches_bench_train_mp": {
+            "camn fp32 step, cli.bench_train as 1 process over NCCL (each process)":
+                gaps["bench_train"]["camn_nccl_1"]["k2_launches_per_step_by_process"],
+            "disco fp32 step, cli.bench_train as 2 processes sharing the card over gloo "
+            "(each process)": gaps["bench_train"]["disco_gloo_2"][
+                "k2_launches_per_step_by_process"]},
     })
     log(f"phase seconds: {json.dumps(phase_s)}")
     log(f"total {time.time() - t_all:.1f} s")

@@ -1,10 +1,15 @@
-"""Rotation conversions used by the EMAGE decode path (counterpart of
-``pantomatrix_tpu/core/rotations.py``): axis-angle <-> quaternion <-> matrix <-> 6D.
+"""Rotation conversions (counterpart of ``pantomatrix_tpu/core/rotations.py``):
+axis-angle <-> quaternion <-> matrix <-> 6D, used by the EMAGE decode path, and
+Euler angles, quaternion algebra and random rotations.
 
 Same formulas, small-angle Taylor guards and sign conventions as the JAX module;
-quaternions are (w, x, y, z). Shape-polymorphic over leading dims.
+quaternions are (w, x, y, z). Shape-polymorphic over leading dims. The random rotations
+take a ``torch.Generator`` where the JAX functions take a key: they draw normals and
+normalise as the JAX functions do, but not ``jax.random``'s stream.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -18,6 +23,11 @@ def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
     """sqrt(max(x, 0))."""
     return torch.where(x > 0, torch.sqrt(torch.where(x > 0, x, torch.ones_like(x))),
                        torch.zeros_like(x))
+
+
+def standardize_quaternion(quaternions: torch.Tensor) -> torch.Tensor:
+    """Canonicalize to the hemisphere with non-negative real part."""
+    return torch.where(quaternions[..., 0:1] < 0, -quaternions, quaternions)
 
 
 def quaternion_to_matrix(quaternions: torch.Tensor) -> torch.Tensor:
@@ -112,15 +122,161 @@ def rotation_6d_to_axis_angle(rot6d: torch.Tensor) -> torch.Tensor:
     return matrix_to_axis_angle(rotation_6d_to_matrix(rot6d))
 
 
+# ---------------------------------------------------------------------------
+# Euler angles (intrinsic conventions such as "XYZ")
+# ---------------------------------------------------------------------------
+
+def _axis_angle_rotation(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    """(...) angles -> (..., 3, 3) rotations about one of the axes X, Y, Z."""
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "X":
+        flat = (one, zero, zero, zero, cos, -sin, zero, sin, cos)
+    elif axis == "Y":
+        flat = (cos, zero, sin, zero, one, zero, -sin, zero, cos)
+    elif axis == "Z":
+        flat = (cos, -sin, zero, sin, cos, zero, zero, zero, one)
+    else:
+        raise ValueError("letter must be either X, Y or Z.")
+    return torch.stack(flat, dim=-1).reshape(angle.shape + (3, 3))
+
+
+def _check_convention(convention: str) -> None:
+    if len(convention) != 3:
+        raise ValueError("Convention must have 3 letters.")
+    if convention[1] in (convention[0], convention[2]):
+        raise ValueError(f"Invalid convention {convention}.")
+    for letter in convention:
+        if letter not in ("X", "Y", "Z"):
+            raise ValueError(f"Invalid letter {letter} in convention string.")
+
+
+def euler_angles_to_matrix(euler_angles: torch.Tensor, convention: str) -> torch.Tensor:
+    """(..., 3) Euler angles -> (..., 3, 3) under an intrinsic convention like "XYZ"."""
+    if euler_angles.shape[-1] != 3:
+        raise ValueError("Invalid input euler angles.")
+    _check_convention(convention)
+    m0, m1, m2 = (_axis_angle_rotation(c, e)
+                  for c, e in zip(convention, euler_angles.unbind(-1)))
+    return m0 @ m1 @ m2
+
+
+def _index_from_letter(letter: str) -> int:
+    return {"X": 0, "Y": 1, "Z": 2}[letter]
+
+
+def _angle_from_tan(axis: str, other_axis: str, data: torch.Tensor, horizontal: bool,
+                    tait_bryan: bool) -> torch.Tensor:
+    """The first or third angle of a convention from a row or column of the matrix."""
+    i1, i2 = {"X": (2, 1), "Y": (0, 2), "Z": (1, 0)}[axis]
+    if horizontal:
+        i2, i1 = i1, i2
+    even = (axis + other_axis) in ("XY", "YZ", "ZX")
+    if horizontal == even:
+        return torch.atan2(data[..., i1], data[..., i2])
+    if tait_bryan:
+        return torch.atan2(-data[..., i2], data[..., i1])
+    return torch.atan2(data[..., i2], -data[..., i1])
+
+
+def matrix_to_euler_angles(matrix: torch.Tensor, convention: str) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3) Euler angles under an intrinsic convention."""
+    _check_convention(convention)
+    if matrix.shape[-1] != 3 or matrix.shape[-2] != 3:
+        raise ValueError(f"Invalid rotation matrix shape {tuple(matrix.shape)}.")
+    i0 = _index_from_letter(convention[0])
+    i2 = _index_from_letter(convention[2])
+    tait_bryan = i0 != i2
+    if tait_bryan:
+        central = torch.asin(matrix[..., i0, i2] * (-1.0 if i0 - i2 in (-1, 2) else 1.0))
+    else:
+        central = torch.acos(matrix[..., i0, i0])
+    return torch.stack((
+        _angle_from_tan(convention[0], convention[1], matrix[..., i2], False, tait_bryan),
+        central,
+        _angle_from_tan(convention[2], convention[1], matrix[..., i0, :], True, tait_bryan),
+    ), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# quaternion algebra
+# ---------------------------------------------------------------------------
+
+def quaternion_raw_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions (not normalized)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    ow = aw * bw - ax * bx - ay * by - az * bz
+    ox = aw * bx + ax * bw + ay * bz - az * by
+    oy = aw * by - ax * bz + ay * bw + az * bx
+    oz = aw * bz + ax * by - ay * bx + az * bw
+    return torch.stack((ow, ox, oy, oz), dim=-1)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, standardized to a non-negative real part."""
+    return standardize_quaternion(quaternion_raw_multiply(a, b))
+
+
+def quaternion_invert(quaternion: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion (its conjugate)."""
+    return quaternion * quaternion.new_tensor([1, -1, -1, -1])
+
+
+def quaternion_apply(quaternion: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) points by (..., 4) wxyz quaternions."""
+    if point.shape[-1] != 3:
+        raise ValueError(f"Points are not in 3D, {tuple(point.shape)}.")
+    real = point.new_zeros(point.shape[:-1] + (1,))
+    out = quaternion_raw_multiply(
+        quaternion_raw_multiply(quaternion, torch.cat((real, point), dim=-1)),
+        quaternion_invert(quaternion))
+    return out[..., 1:]
+
+
+# ---------------------------------------------------------------------------
+# random rotations
+# ---------------------------------------------------------------------------
+
+def random_quaternions(n: int, generator: Optional[torch.Generator] = None,
+                       dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """n uniform random unit wxyz quaternions (double cover; not standardized): normals
+    drawn from ``generator`` and normalised (not ``jax.random``'s stream)."""
+    o = torch.randn((n, 4), generator=generator, dtype=dtype, device=device)
+    return o / torch.linalg.vector_norm(o, dim=-1, keepdim=True)
+
+
+def random_rotations(n: int, generator: Optional[torch.Generator] = None,
+                     dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """n uniform random rotation matrices, (n, 3, 3)."""
+    return quaternion_to_matrix(random_quaternions(n, generator, dtype, device))
+
+
+def random_rotation(generator: Optional[torch.Generator] = None,
+                    dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """One uniform random rotation matrix, (3, 3)."""
+    return random_rotations(1, generator, dtype, device)[0]
+
+
 __all__ = [
     "axis_angle_to_matrix",
     "axis_angle_to_quaternion",
     "axis_angle_to_rotation_6d",
+    "euler_angles_to_matrix",
     "matrix_to_axis_angle",
+    "matrix_to_euler_angles",
     "matrix_to_quaternion",
     "matrix_to_rotation_6d",
+    "quaternion_apply",
+    "quaternion_invert",
+    "quaternion_multiply",
+    "quaternion_raw_multiply",
     "quaternion_to_axis_angle",
     "quaternion_to_matrix",
+    "random_quaternions",
+    "random_rotation",
+    "random_rotations",
     "rotation_6d_to_axis_angle",
     "rotation_6d_to_matrix",
+    "standardize_quaternion",
 ]

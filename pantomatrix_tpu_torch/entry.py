@@ -12,9 +12,6 @@ inference with the batch split over the processes and with the FSDP-placed weigh
 """
 from __future__ import annotations
 
-import os
-import socket
-
 import numpy as np
 import torch
 
@@ -167,24 +164,13 @@ def _dryrun_checks(world: int, device) -> dict:
     return out
 
 
-def _dryrun_worker(rank: int, world: int, port: int, device: str, queue) -> None:
+def _dryrun_process(world: int, device: str):
+    """One process of :func:`dryrun_multichip`: its checks and the group's backend."""
     import torch.distributed as dist
 
-    from .train.mesh import maybe_init_distributed
-
-    torch.set_num_threads(1)
-    # every process runs on this host: with fewer cards than processes they share them
-    os.environ.update(PANTO_COORDINATOR=f"localhost:{port}", PANTO_NUM_PROCESSES=str(world),
-                      PANTO_PROCESS_ID=str(rank), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world))
-    maybe_init_distributed(device)
     dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
            else torch.device("cpu"))
-    try:
-        result = _dryrun_checks(world, dev)
-        queue.put((rank, result, dist.get_backend()))
-    finally:
-        dist.destroy_process_group()
+    return _dryrun_checks(world, dev), dist.get_backend()
 
 
 def dryrun_multichip(n_devices: int = 2, device: str = "cuda", timeout_s: float = 600.0) -> dict:
@@ -197,41 +183,12 @@ def dryrun_multichip(n_devices: int = 2, device: str = "cuda", timeout_s: float 
     and gathered back) and ``inference_param_sharded`` (the FSDP-placed weights gathered
     for use). Returns process 0's rows ({"max_abs_err", "equal_to_one_process", ...},
     and "backend"); raises if a process fails, hangs past ``timeout_s`` or disagrees."""
-    import queue as queue_mod
-
-    import torch.multiprocessing as mp
-
     from .models.api import resolve_device
+    from .train.mesh import run_processes
 
     resolve_device(device)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=_dryrun_worker, args=(r, n_devices, port, device, q))
-             for r in range(n_devices)]
-    for p in procs:
-        p.start()
-    results = {}
-    try:
-        for _ in range(n_devices):
-            rank, result, backend = q.get(timeout=timeout_s)
-            results[rank] = dict(result, backend=backend)
-    except queue_mod.Empty:
-        raise RuntimeError(f"dryrun_multichip({n_devices}): {len(results)} of {n_devices} "
-                           f"processes reported within {timeout_s} s") from None
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise RuntimeError(f"dryrun_multichip({n_devices}): exit codes {codes}")
-    out = results[0]
-    backend = out.pop("backend")
+    out, backend = run_processes(_dryrun_process, n_devices, device, (n_devices, device),
+                                 timeout_s=timeout_s, what=f"dryrun_multichip({n_devices})")[0]
     bad = {k: v for k, v in out.items() if not v["equal_to_one_process"]}
     if bad:
         raise AssertionError(f"dryrun_multichip({n_devices}) differs from one process: {bad}")

@@ -25,7 +25,9 @@ all of its CTAs co-resident, one per SM (:func:`plan_layer`), so it wants the wh
 card: where that fails (a card shared under MPS, say) the launch raises. ``launches``
 counts the kernel's executions on the device, one per layer call, so a run can show
 that it went through the kernel; a launch recorded into a CUDA graph adds to
-``captured`` instead (see ``ops/vq_cuda.py``).
+``captured`` instead (see ``ops/vq_cuda.py``). ``forward_flops`` adds up, beside
+``launches``, the recurrent products of the executed launches (:func:`layer_flops`),
+which ``torch.utils.flop_counter.FlopCounterMode`` cannot see in a ctypes launch.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from . import build
 
 launches = 0
 captured = 0  # launches recorded into CUDA graphs, not executed
+forward_flops = 0  # layer_flops of every launch counted in ``launches``
 
 THREADS = 256  # threads per CTA (csrc/lstm_sequence.cu)
 TILE_ROWS = (4, 8, 16, 32)  # batch rows per tile the kernel takes
@@ -61,6 +64,13 @@ class LayerPlan(NamedTuple):
     @property
     def ctas(self) -> int:
         return self.unit_groups * self.batch_groups * self.directions
+
+
+def layer_flops(t: int, b: int, hidden: int, directions: int = 2) -> int:
+    """The recurrent products of one layer call at (T, B, H): each direction takes T
+    steps of h (B, H) @ W_hh^T (H, 4H), 2·B·4H·H FLOPs each, as ``FlopCounterMode`` counts
+    the plain version's products."""
+    return directions * t * 2 * b * 4 * hidden * hidden
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -209,7 +219,7 @@ def _check(x_proj, w_hh, hidden, d):
 
 def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> torch.Tensor:
     """One kernel launch over a layer of ``d`` directions (inputs already checked)."""
-    global launches, captured
+    global launches, captured, forward_flops
     if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError("the LSTM kernel takes contiguous x_proj and w_hh")
     t, b, _ = x_proj.shape
@@ -232,6 +242,7 @@ def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> to
         captured += 1
     else:
         launches += 1
+        forward_flops += layer_flops(t, b, hidden, d)
     return out
 
 
@@ -293,6 +304,7 @@ def lstm_bidirectional(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) ->
     return _launch(x_proj, w_hh, hidden, 2)
 
 
-__all__ = ["LayerPlan", "LstmLayerFunction", "captured", "launches", "lstm_bidirectional",
+__all__ = ["LayerPlan", "LstmLayerFunction", "captured", "forward_flops", "launches",
+           "layer_flops", "lstm_bidirectional",
            "lstm_bidirectional_plain", "lstm_direction", "lstm_direction_plain", "plan_layer",
            "smem_bytes", "k_split"]

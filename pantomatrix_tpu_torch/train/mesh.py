@@ -109,6 +109,81 @@ def backend_and_card(cuda: bool, world: int, rank: int, env, cards: int
     return "nccl", local_rank
 
 
+def data_axis_size(batch_size: int, devices: int) -> int:
+    """The largest process count up to ``devices`` that divides the global batch: every
+    process must read an equal block (the JAX package's ``make_data_mesh`` shrinks its
+    mesh so)."""
+    n = max(int(devices), 1)
+    while n > 1 and batch_size % n:
+        n -= 1
+    return n
+
+
+def _process_main(rank: int, world: int, port: int, device: str, threads: int, fn, args,
+                  results) -> None:
+    torch.set_num_threads(threads)
+    # every process runs on this host: with fewer cards than processes they share them
+    os.environ.update(PANTO_COORDINATOR=f"localhost:{port}", PANTO_NUM_PROCESSES=str(world),
+                      PANTO_PROCESS_ID=str(rank), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    maybe_init_distributed(device)
+    try:
+        results.put((rank, fn(*args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_processes(fn, world: int, device: str, args=(), timeout_s: float = 600.0,
+                  threads: int = 1, what: str = "run_processes") -> list:
+    """``fn(*args)`` in ``world`` spawned processes of one process group on this host
+    (the ``PANTO_*`` variables on a free localhost port; :func:`maybe_init_distributed`
+    picks NCCL or gloo and each process's card), each at ``threads`` CPU threads.
+    Returns every rank's return value, in rank order (``fn`` and the values must
+    pickle). Raises as soon as a process fails, or when they have not all returned
+    within ``timeout_s``; every process is stopped before it returns."""
+    import queue as queue_mod
+    import socket
+    import time
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_process_main,
+                         args=(r, world, port, device, threads, fn, tuple(args), q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(results) < world:
+            try:
+                rank, out = q.get(timeout=1.0)
+                results[rank] = out
+                continue
+            except queue_mod.Empty:
+                pass
+            codes = [p.exitcode for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                raise RuntimeError(f"{what}: a process failed, exit codes {codes}")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{what}: {len(results)} of {world} processes returned "
+                                   f"within {timeout_s} s")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{what}: exit codes {codes}")
+    return [results[r] for r in range(world)]
+
+
 def _visible_devices() -> int:
     """The devices a mesh can span: one card (or CPU) a process."""
     return dist.get_world_size() if dist.is_initialized() else 1
@@ -476,8 +551,8 @@ def mean_over_processes(values: Dict[str, float], mesh: Optional[Mesh],
     return {k: float(v) / mesh.world for k, v in zip(keys, t.tolist())}
 
 
-__all__ = ["FsdpOptimizer", "Mesh", "backend_and_card", "data_sharding", "fsdp_enabled", "fsdp_spec",
-           "fsdp_state", "gather_replicated", "make_data_mesh", "make_mesh",
-           "make_train_mesh", "maybe_init_distributed", "mean_over_processes",
+__all__ = ["FsdpOptimizer", "Mesh", "backend_and_card", "data_axis_size", "data_sharding",
+           "fsdp_enabled", "fsdp_spec", "fsdp_state", "gather_replicated", "make_data_mesh",
+           "make_mesh", "make_train_mesh", "maybe_init_distributed", "mean_over_processes",
            "place_train_state", "reduce_gradients", "replicate", "replicated",
-           "shard_batch", "shard_tree_fsdp"]
+           "run_processes", "shard_batch", "shard_tree_fsdp"]
