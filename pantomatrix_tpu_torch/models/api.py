@@ -14,6 +14,7 @@ from typing import Dict, Type
 import torch
 
 from ..io import hf_checkpoint
+from ..utils import trace
 from .camn import CamnAudio
 from .configs import (
     BaseConfig,
@@ -151,7 +152,11 @@ class EmageVQModel(EmageVQSuite):
         return vq_map2latent(self, rot6d, expression, tar_contact, tar_trans)
 
     def decode(self, **kwargs):
-        return vq_decode(self, **kwargs)
+        # the span sits here, not in vq_decode, which the window-step graphs capture
+        x = next((v for k, v in kwargs.items()
+                  if v is not None and k.endswith(("_index", "_latent"))), None)
+        with trace.span("emage.decode", x, frames=None if x is None else x.shape[1]):
+            return vq_decode(self, **kwargs)
 
     def get_global_motion(self, lower_body, ref_trans):
         return vq_get_global_motion(self, lower_body, ref_trans)

@@ -11,6 +11,9 @@ The model is built in eval mode, and ``model(...)`` is ``camn_forward``: inferen
 without gradients. In train mode (``model.train()``) ``model(...)`` is ``camn_apply``,
 the same computation with gradients, batch-statistics BatchNorm and dropout (the JAX
 ``camn_forward`` with a train ``Ctx``), which ``train/steps.py`` calls.
+
+Spans (``utils/trace.py``, recorded only under a profiler): ``camn.forward`` around the
+inference, ``camn.audio_encoder`` around the WavEncoder, and ``lstm.layer`` (``nn/lstm.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..core.masking import MASK_DICT
 from ..nn.blocks import MLP, WavEncoder
 from ..nn.layers import Embedding, strict_fp32
 from ..nn.lstm import LSTM
+from ..utils import trace
 from ..utils.precision import cast_once, compute_dtype_of
 from .common import (
     build_seed_motion,
@@ -74,10 +78,14 @@ def camn_forward(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor
     work runs in bfloat16 (float32 reductions inside the primitives, the LSTM recurrence
     in float32, see ``nn/lstm.py``); ``motion`` is cast back to float32 before the
     axis-angle step. None, the default, is the float32 parity path."""
-    dtype = compute_dtype_of(compute_dtype)
-    if dtype is not None:
-        model, audio = cast_once(model, dtype), audio.to(dtype)
-    return camn_apply(model, audio, speaker_id, seed_frames, seed_motion, return_axis_angle)
+    with trace.span("camn.forward", audio, batch=audio.shape[0]):
+        dtype = compute_dtype_of(compute_dtype)
+        if dtype is not None:
+            model, audio = cast_once(model, dtype), audio.to(dtype)
+        out = camn_apply(model, audio, speaker_id, seed_frames, seed_motion,
+                         return_axis_angle)
+        trace.annotate("camn.forward", frames=out["motion"].shape[1])
+        return out
 
 
 def camn_apply(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
@@ -87,7 +95,8 @@ def camn_apply(model: CamnAudio, audio: torch.Tensor, speaker_id: torch.Tensor,
     gradients where autograd is on; ``motion`` comes back in float32."""
     cfg = model.config
     h = cfg.hidden_size
-    audio_feat = model.audio_encoder(audio)
+    with trace.span("camn.audio_encoder", audio):
+        audio_feat = model.audio_encoder(audio)
     bs, t, _ = audio_feat.shape
     seed = build_seed_motion(seed_motion, bs, t, cfg.pose_dims, seed_frames,
                              audio_feat.dtype, audio_feat.device)

@@ -33,6 +33,7 @@ from ..core.rotations import axis_angle_to_rotation_6d
 from ..nn.attention import TransformerDecoder, TransformerEncoder
 from ..nn.blocks import MLP, VQEncoder, WavEncoder, make_periodic_pe, periodic_positional_encoding
 from ..nn.layers import Embedding, Linear, log_softmax, normal, strict_fp32
+from ..utils import trace
 from ..utils.precision import cast_once, compute_dtype_of
 from .configs import EmageAudioConfig
 from .emage_graph import WindowStepGraphs, graphs_of, step_key
@@ -298,8 +299,9 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
     if model.training:
         raise RuntimeError("emage_inference runs an eval-mode model: call model.eval() first")
     step = graph_window_step(graphs_of(model)) if audio.is_cuda else _window_step
-    return _inference_loop(model, audio, speaker_id, suite, masked_motion, mask,
-                           compute_dtype, batched_wav, step)
+    with trace.span("emage.inference", audio, batch=audio.shape[0]):
+        return _inference_loop(model, audio, speaker_id, suite, masked_motion, mask,
+                               compute_dtype, batched_wav, step)
 
 
 def graph_window_step(cache: WindowStepGraphs):
@@ -325,9 +327,12 @@ def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, comput
                     batched_wav, full_window_step):
     """``emage_inference`` with ``full_window_step`` (``_window_step``'s signature) for
     the full windows. Each window's kept frames are copied into outputs allocated at the
-    full length before the next window runs, so the step may reuse its outputs."""
+    full length before the next window runs, so the step may reuse its outputs. Spans
+    (``utils/trace.py``): ``emage.window`` around each full window but not the copy of
+    its kept frames, its ``graph`` replayed, captured or eager; ``emage.remainder``."""
     cfg = model.config
     masked_motion, mask, rounds, remain = prepare_ar_inputs(cfg, audio, masked_motion, mask)
+    trace.annotate("emage.inference", rounds=rounds, remain=remain)
     dtype = compute_dtype_of(compute_dtype)
     if dtype is not None:
         model = cast_once(model, dtype)
@@ -350,15 +355,17 @@ def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, comput
     out = None
     last_motion = masked_motion[:, :pre]
     for i in range(rounds):
-        net_out, last_motion = one_window(full_window_step, last_motion, i * stride, window,
-                                          None if feats is None else feats[i])
+        with trace.span("emage.window", audio, index=i, graph="eager"):
+            net_out, last_motion = one_window(full_window_step, last_motion, i * stride,
+                                              window, None if feats is None else feats[i])
         if out is None:
             out = {k: v.new_empty((bs, total) + v.shape[2:]) for k, v in net_out.items()}
         for k, v in net_out.items():
             out[k][:, i * stride:(i + 1) * stride] = v[:, :stride]
     if remain > pre:
         # the remainder-only case (rounds == 0) seeds from the prepared motion
-        net_out, _ = one_window(_window_step, last_motion, rounds * stride, pre + remain)
+        with trace.span("emage.remainder", audio, frames=pre + remain):
+            net_out, _ = one_window(_window_step, last_motion, rounds * stride, pre + remain)
         if out is None:
             return net_out
         for k, v in net_out.items():

@@ -24,7 +24,8 @@ next replay of that graph overwrites them, so the caller consumes or copies them
 - *Launch counters*: a kernel launched during a capture adds to its wrapper's
   ``captured`` count, not to ``launches``; each replay adds the launches its capture
   recorded, so ``launches`` counts executions on the device (warm-ups count as they
-  run).
+  run). The window span open around a step (``utils/trace.py``) learns whether its
+  graph was replayed or captured anew.
 - A failed capture or replay raises; nothing falls back to the eager step. The cache is
   not thread-safe: callers that share a model serialize their device work
   (``serve_http.MotionServer`` holds one lock for it).
@@ -37,6 +38,7 @@ import torch
 
 from ..nn.layers import strict_fp32
 from ..ops import lstm_cuda, vq_cuda
+from ..utils import trace
 from ..utils.precision import _weights_key
 
 GRAPHS_ATTR = "_window_step_graphs"  # where a model keeps its cache
@@ -90,9 +92,11 @@ class WindowStepGraphs:
         slot, owner_ids = key
         weights = tuple(_weights_key(m) for m in owners)
         g = self._graphs.get(slot)
-        if g is None or g.owners != owner_ids or g.weights != weights:
+        captured = g is None or g.owners != owner_ids or g.weights != weights
+        if captured:
             self._graphs.pop(slot, None)  # free the old graph's memory before capturing
             g = self._graphs[slot] = self._capture(fn, inputs, owner_ids, weights)
+        trace.annotate("emage.window", graph="captured" if captured else "replayed")
         with torch.inference_mode(False), torch.no_grad():
             for buf, x in zip(g.inputs, inputs):
                 if buf is not None:

@@ -29,6 +29,7 @@ from ..nn.blocks import VQDecoder, VQEncoder
 from ..nn.layers import strict_fp32
 from ..nn.vq import Quantizer, get_codebook_entry, map2index, quantize
 from ..ops.vq_cuda import nearest_code
+from ..utils import trace
 from .configs import EmageVAEConvConfig, EmageVQVAEConvConfig
 
 
@@ -220,14 +221,16 @@ def vq_decode(
         raise ValueError("get_global_motion needs ref_trans")
     zeros = lambda c: torch.zeros(bs, t, c, device=device)
 
-    def decode(index, latent, model):
-        if index is not None:
-            return vqvae_decode_index(model, index)
-        if latent is not None:
-            return vqvae_decode_latent(model, latent)
-        return None
+    def decode(part, index, latent):
+        if index is None and latent is None:
+            return None
+        # a span of the part's decode, which records nothing while a graph is captured
+        with trace.span("vq.part", latent if index is None else index, part=part):
+            if index is not None:
+                return vqvae_decode_index(getattr(suite, part), index)
+            return vqvae_decode_latent(getattr(suite, part), latent)
 
-    face_mix = decode(face_index, face_latent, suite.face)
+    face_mix = decode("face", face_index, face_latent)
     if face_mix is not None:
         face_jaw = rotation_6d_to_axis_angle(face_mix[:, :, :6])
         expression = face_mix[:, :, 6:]
@@ -235,9 +238,9 @@ def vq_decode(
         face_jaw, expression = zeros(3), zeros(100)
 
     to_aa = lambda six_d: rotation_6d_to_axis_angle(six_d.reshape(bs, t, -1, 6)).reshape(bs, t, -1)
-    upper_6d = decode(upper_index, upper_latent, suite.upper)
-    hands_6d = decode(hands_index, hands_latent, suite.hands)
-    lower_mix = decode(lower_index, lower_latent, suite.lower)
+    upper_6d = decode("upper", upper_index, upper_latent)
+    hands_6d = decode("hands", hands_index, hands_latent)
+    lower_mix = decode("lower", lower_index, lower_latent)
     upper = to_aa(upper_6d) if upper_6d is not None else zeros(39)
     hands = to_aa(hands_6d) if hands_6d is not None else zeros(90)
     if lower_mix is not None:

@@ -21,6 +21,9 @@ output is cast back to bfloat16 (the casts are differentiable). The weights are 
 bfloat16 values as the JAX package's; the one difference is the recurrence state, which
 the JAX scan carries in bfloat16 (``pantomatrix_tpu/nn/lstm.py``) and which here is
 float32, so more precise.
+
+Each layer, its projection, upcasts, K2 and cast back, is one ``lstm.layer`` span
+(``utils/trace.py``), which records only under a profiler.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.lstm_cuda import lstm_bidirectional
+from ..utils import trace
 from .layers import dropout, uniform
 
 SUFFIXES = ("", "_reverse")  # forward, then backward direction
@@ -58,15 +62,18 @@ class LSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.transpose(0, 1)  # (T, B, C)
+        t, b = y.shape[:2]
         for layer in range(self.num_layers):
             p = lambda name: [getattr(self, f"{name}_l{layer}{sfx}") for sfx in SUFFIXES]
-            w_ih = torch.cat(p("weight_ih"))  # (8H, C): forward rows, then reverse rows
-            bias = torch.cat(p("bias_ih")) + torch.cat(p("bias_hh"))
-            x_proj = torch.matmul(y, w_ih.T) + bias  # (T, B, 8H)
-            # K2 takes float32: low-precision values are upcast exactly, and the
-            # layer's output is cast back (both no-ops in float32)
-            w_hh = torch.stack(p("weight_hh")).float()
-            y = lstm_bidirectional(x_proj.float(), w_hh, self.hidden_size).to(x_proj.dtype)
+            with trace.span("lstm.layer", y, layer=layer, t=t, b=b):
+                w_ih = torch.cat(p("weight_ih"))  # (8H, C): forward rows, then reverse rows
+                bias = torch.cat(p("bias_ih")) + torch.cat(p("bias_hh"))
+                x_proj = torch.matmul(y, w_ih.T) + bias  # (T, B, 8H)
+                # K2 takes float32: low-precision values are upcast exactly, and the
+                # layer's output is cast back (both no-ops in float32)
+                w_hh = torch.stack(p("weight_hh")).float()
+                y = lstm_bidirectional(x_proj.float(), w_hh,
+                                       self.hidden_size).to(x_proj.dtype)
             if layer < self.num_layers - 1:
                 y = dropout(y, self.dropout, self.training, batch_dim=1)
         return y.transpose(0, 1)

@@ -1,12 +1,7 @@
-"""Run records: wandb (opt-in), metrics.jsonl, the throughput line and profiler traces
-(counterpart of ``pantomatrix_tpu/train/logging.py``).
-
-``trace`` wraps a block in a ``torch.profiler`` trace (CPU, and CUDA where a card is
-present) written for TensorBoard; the JAX package's wraps ``jax.profiler``.
-"""
+"""Run records: wandb (opt-in), metrics.jsonl and the throughput line (counterpart of
+``pantomatrix_tpu/train/logging.py``)."""
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
@@ -72,21 +67,4 @@ class ThroughputMeter:
                 f"({rtf:.1f}x real-time)")
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]):
-    """A ``torch.profiler`` trace of the block into ``log_dir`` (TensorBoard's format);
-    nothing when ``log_dir`` is None. Yields the profiler (or None)."""
-    if log_dir is None:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
-
-
-__all__ = ["JsonlLogger", "ThroughputMeter", "WandbLogger", "trace"]
+__all__ = ["JsonlLogger", "ThroughputMeter", "WandbLogger"]

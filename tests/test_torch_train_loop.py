@@ -345,15 +345,3 @@ def test_run_records_match_jax(tmp_path, monkeypatch):
     assert lines == ["cost 4.00s to generate 12.00s of motion (3.0x real-time)"] * 2
     assert (tmp_path / "port.jsonl").read_text() == (tmp_path / "jax.jsonl").read_text()
     assert os.environ.get("WANDB_API_KEY") != "unused"  # disabled: the key is not set
-
-
-def test_trace_writes_a_profiler_trace(tmp_path):
-    from pantomatrix_tpu_torch.train.logging import trace
-
-    with trace(None) as prof:
-        assert prof is None
-    with trace(str(tmp_path)) as prof:
-        torch.ones(64).cumsum(0).sum()
-    assert prof is not None
-    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
-    assert "cumsum" in open(path).read()
