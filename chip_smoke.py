@@ -26,17 +26,23 @@ Phases, each of which raises on failure (nothing is caught):
   7. K2 (the persistent LSTM layer kernel) against its plain PyTorch version on the card,
      for one direction (lstm_direction) and for both directions of a layer in one launch
      (lstm_bidirectional): at the test and edge shapes to atol 1e-5, and at the CaMN/DisCo
-     path shapes (T = 421, B = 8 and 64, H = 512) and evaluation's (T = 960, B = 1, H =
-     512: a 64 s take at 15 fps) against a float64 run; two calls must
-     be bitwise equal. CUDA-event timings of each layer launch and its us per step (with
-     B = 1 as the per-step latency floor), the plain version and, as library yardsticks,
-     cuDNN's torch.nn.LSTM(1024, 512) (one direction) and torch.nn.LSTM(1024, 512,
-     bidirectional=True) for one layer, beside matmul projection + K2;
+     path shapes (T = 421, B = 8, 16, 32 and 64, H = 512), cli.bench_train's and CaMN
+     training's (T = 127 and 64, B = 64) and evaluation's (T = 960, B = 1, H = 512: a 64 s
+     take at 15 fps) against a float64 run (no further from it than twice the plain fp32
+     version + 1e-6); two calls must be bitwise equal. Each row gives the gate product
+     its plan takes (ffma or the split-TF32 mma), the launches lstm_cuda.mma_launches
+     counted (2 where the product is mma, else 0) and the kernel's largest difference
+     from lstm_*_split_plain, the plain model of the mma arithmetic. CUDA-event timings
+     of each layer launch and its us per step (with B = 1 as the per-step latency floor),
+     the plain version and, as library yardsticks, cuDNN's torch.nn.LSTM(1024, 512) (one
+     direction) and torch.nn.LSTM(1024, 512, bidirectional=True) for one layer, beside
+     matmul projection + K2;
   8. parity: tiny CaMN and DisCo configs on the CPU (plain K2) and on the card;
   9. CaMN at full width (CamnAudioConfig(), random weights from a seed): batch 8 x 28.4 s
      once, checking shapes and 8 K2 launches (one per bidirectional layer), then timed
-     calls at batch 8 and 64;
- 10. DisCo at full width, the same, with 4 K2 launches;
+     calls at batch 8 and 64, each with its K2 launches on the tensor cores
+     (lstm_cuda.mma_launches: 8 at batch 64, 0 at batch 8, as the plans take them);
+ 10. DisCo at full width, the same, with 4 K2 launches (4 and 0 on the tensor cores);
  11. the CaMN CLI (python -m pantomatrix_tpu_torch.cli.test_camn --random_init) on a 3 s WAV;
  12. bf16 serving (compute_dtype="bfloat16", and EMAGE's batched_wav) at full width:
      EMAGE at batch 8 x 20 s in bf16 with and without batched_wav (finite, network
@@ -215,11 +221,17 @@ K1_HEADLINE = (128 * 1800, 256, 256)
 # frames at 15 fps) and evaluation's 64 s take at batch 1 (960 frames), and B = 1 for the
 # per-step latency floor
 K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
-                  (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512)]
+                  (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512),
+                  # the tensor-core product: a ragged second tile (24 of 32 rows), H padded
+                  # to 64 (one 16-wide k block a warp pair, six warps idle), and H = 1024
+                  (5, 96, 512), (9, 256, 48), (5, 32, 1024)]
 # cli.bench_train's CaMN/DisCo batch: 64 clips x 128 frames at 15 fps, 127 LSTM steps from
 # the WavEncoder (wav_encoder_out_len)
 K2_BENCH_SHAPE = (127, 64, 512)
-K2_PATH_SHAPES = [(421, 8, 512), (421, 64, 512), (960, 1, 512), K2_BENCH_SHAPE]
+# B = 16 and 32 beside 8 and 64, where the gate product changes (ops/lstm_cuda.plan_layer),
+# and CaMN's training shape (TRAIN_K2_SHAPE)
+K2_PATH_SHAPES = [(421, 8, 512), (421, 16, 512), (421, 32, 512), (421, 64, 512),
+                  (960, 1, 512), K2_BENCH_SHAPE, (64, 64, 512)]
 K2_FLOOR_SHAPE = (421, 1, 512)
 K2_HEADLINE = (421, 64, 512)
 K2_ATOL = 1e-5
@@ -553,6 +565,28 @@ def k2_fns(d: int):
     return lstm_cuda.lstm_bidirectional, lstm_cuda.lstm_bidirectional_plain
 
 
+def k2_split_fn(d: int):
+    """The plain model of K2's tensor-core arithmetic for a layer of ``d`` directions."""
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+
+    return lstm_cuda.lstm_direction_split_plain if d == 1 else \
+        lstm_cuda.lstm_bidirectional_split_plain
+
+
+def k2_calls(kernel, plan, *args):
+    """Two calls of ``kernel``, checking that ``lstm_cuda.mma_launches`` counts them
+    exactly where ``plan`` takes the tensor-core product; returns both outputs and the
+    count."""
+    from pantomatrix_tpu_torch.ops import lstm_cuda
+
+    before = lstm_cuda.mma_launches
+    got, again = kernel(*args), kernel(*args)
+    counted = lstm_cuda.mma_launches - before
+    if counted != (2 if plan.product == "mma" else 0):
+        raise AssertionError(f"K2 {plan}: mma_launches counted {counted} of 2 launches")
+    return got, again, counted
+
+
 def k2_check(d, shape, got, again, want):
     """Shape, agreement with the plain version (atol K2_ATOL) and bitwise repeatability."""
     t, b, h = shape
@@ -579,13 +613,17 @@ def phase_k2(device):
                 xp = torch.randn(t, b, d * 4 * h, generator=g).to(device)
                 w_hh = (0.2 * torch.randn(d, 4 * h, h, generator=g)).to(device)
                 w_hh = w_hh[0] if d == 1 else w_hh
-                got, again = kernel(xp, w_hh, h), kernel(xp, w_hh, h)
+                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
+                got, again, counted = k2_calls(kernel, plan, xp, w_hh, h)
                 want = plain(xp, w_hh, h)
+                split = k2_split_fn(d)(xp, w_hh, h)
                 torch.cuda.synchronize()
                 err = k2_check(d, (t, b, h), got, again, want)
-                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
                 rows.append({"directions": d, "shape": [t, b, h], "max_abs_err": err,
-                             "bitwise_repeatable": True, "plan": plan._asdict()})
+                             "bitwise_repeatable": True, "product": plan.product,
+                             "mma_launches": counted,
+                             "split_model_max_abs_diff": float((got - split).abs().max()),
+                             "plan": plan._asdict()})
                 log(f"K2 lstm_layer {rows[-1]}")
         for t, b, h in [K2_FLOOR_SHAPE] + K2_PATH_SHAPES:
             # torch-default layers (U(+-1/sqrt(H))) on N(0, 1) input of the inner layers'
@@ -600,9 +638,11 @@ def phase_k2(device):
                 bias = (b_ih[0] + b_hh[0]) if d == 1 else (b_ih + b_hh).reshape(8 * h)
                 wh = w_hh[0] if d == 1 else w_hh
                 xp = torch.matmul(x, wi.T) + bias
-                got, again = kernel(xp, wh, h), kernel(xp, wh, h)
+                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
+                got, again, counted = k2_calls(kernel, plan, xp, wh, h)
                 want = plain(xp, wh, h)
                 exact = plain(xp.double(), wh.double(), h)
+                split = k2_split_fn(d)(xp, wh, h)
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
                     raise AssertionError(f"K2 D={d} {(t, b, h)}: two calls differ")
@@ -612,10 +652,12 @@ def phase_k2(device):
                 if not err64 <= 2 * plain_err64 + 1e-6:
                     raise AssertionError(f"K2 D={d} {(t, b, h)}: kernel off float64 by {err64}, "
                                          f"plain fp32 by {plain_err64}")
-                plan = lstm_cuda.plan_layer(t, b, h, d, sms, smem)
                 row = {"directions": d, "shape": [t, b, h], "max_abs_err": err,
                        "kernel_err_vs_fp64": err64, "plain_err_vs_fp64": plain_err64,
-                       "bitwise_repeatable": True, "plan": plan._asdict()}
+                       "bitwise_repeatable": True, "product": plan.product,
+                       "mma_launches": counted,
+                       "split_model_max_abs_diff": float((got - split).abs().max()),
+                       "plan": plan._asdict()}
                 row["kernel_ms"] = cuda_ms(lambda: kernel(xp, wh, h), reps=10)
                 row["us_per_step"] = 1e3 * row["kernel_ms"] / t
                 row["bound_ms"], row["bound_by"] = k2_bound(t, b, h, d)
@@ -694,7 +736,13 @@ def phase_lstm_path(name, card, counted_bs=8, timed=(8, 64)):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t_start
 
-    lstm_cuda.launches = vq_cuda.launches = 0
+    sms, smem = lstm_cuda.device_limits(torch.cuda.current_device())
+
+    def want_mma(bs):  # every layer takes the tensor-core product where its plan does
+        plan = lstm_cuda.plan_layer(LSTM_FRAMES, bs, model.config.hidden_size, 2, sms, smem)
+        return want_launches if plan.product == "mma" else 0
+
+    lstm_cuda.launches = lstm_cuda.mma_launches = vq_cuda.launches = 0
     out, wall = generate(counted_bs)
     launches = lstm_cuda.launches
     expect = {"motion": (counted_bs, LSTM_FRAMES, 258),
@@ -703,19 +751,25 @@ def phase_lstm_path(name, card, counted_bs=8, timed=(8, 64)):
         if tuple(out[k].shape) != shape or not bool(torch.isfinite(out[k]).all()):
             raise AssertionError(f"{name} path: {k} {tuple(out[k].shape)} (want {shape}), "
                                  f"finite={bool(torch.isfinite(out[k]).all())}")
-    if launches != want_launches or vq_cuda.launches != 0:
+    if launches != want_launches or vq_cuda.launches != 0 or \
+            lstm_cuda.mma_launches != want_mma(counted_bs):
         raise AssertionError(f"{name} path: K2 launched {launches} times (want "
-                             f"{want_launches}), K1 {vq_cuda.launches} (want 0)")
+                             f"{want_launches}), {lstm_cuda.mma_launches} on the tensor cores "
+                             f"(want {want_mma(counted_bs)}), K1 {vq_cuda.launches} (want 0)")
     log(f"{name} path: batch {counted_bs} x {LSTM_SECONDS} s -> {expect}, finite; K2 launches "
-        f"{launches}; first call {wall:.3f} s")
+        f"{launches} ({lstm_cuda.mma_launches} on the tensor cores); first call {wall:.3f} s")
     for bs in timed:
         generate(bs)  # warm-up
-        lstm_cuda.launches = 0
+        lstm_cuda.launches = lstm_cuda.mma_launches = 0
         torch.cuda.reset_peak_memory_stats()
         _, wall = generate(bs)
         result = {"model": name, "batch": bs, "seconds": LSTM_SECONDS, "wall_s": wall,
                   "realtime_factor": bs * LSTM_SECONDS / wall, "k2_launches": lstm_cuda.launches,
+                  "k2_mma_launches": lstm_cuda.mma_launches,
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        if lstm_cuda.mma_launches != want_mma(bs):
+            raise AssertionError(f"{name} path timed: {result} (want {want_mma(bs)} K2 "
+                                 f"launches on the tensor cores)")
         log(f"{name} path timed: {json.dumps(result)}")
     return launches
 

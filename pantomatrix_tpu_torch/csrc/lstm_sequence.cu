@@ -23,9 +23,10 @@
 // Design: one cooperative launch per layer; no host loop over timesteps.
 //  * The grid is (unit group, batch group, direction). A CTA owns U hidden units of one
 //    direction, all four gates of each (4U rows of W_hh), for BR batch rows. The plan
-//    (U, BT, BR, whether W stays resident) comes from ops/lstm_cuda.py::plan_layer, which
-//    keeps the CTAs at most one per SM so that all of them are co-resident;
-//    cudaLaunchCooperativeKernel refuses the launch (rather than deadlocking) if not.
+//    (U, BT, BR, whether W stays resident, which gate product) comes from
+//    ops/lstm_cuda.py::plan_layer, which keeps the CTAs at most one per SM so that all of
+//    them are co-resident; cudaLaunchCooperativeKernel refuses the launch (rather than
+//    deadlocking) if not.
 //  * W_hh's slice (4U x H) is loaded into shared memory once and stays there for all T
 //    steps. Where the layer's W_hh does not fit the card's shared memory (H = 1024 in
 //    both directions is 32 MiB), the plan turns residency off and the product reads
@@ -43,33 +44,68 @@
 //    with release semantics. Counters only grow; batch groups never wait on each other.
 //    A wait longer than about 17 s traps, so a fault ends the launch with an error
 //    instead of a hang.
-//  * The gate product (BT rows x 4U gates, over H) is split over 256 threads: a thread
-//    takes the 4 gates of UT units for RT batch rows, a 4UT x RT register tile fed by
-//    float4 loads of W and h along k. A 16-byte shared-memory load of a warp takes at
-//    least 4 of the SM's 1-per-clock wavefronts (one per quarter warp), and on the card
-//    the product's time follows that count plus the FMAs, so the larger the tile, the
-//    more FMAs each load feeds: RT = 8 (4 where BT = 4) and UT = 2 where BT = 32 (each
-//    load then feeds 32 FMAs), else 1, since a larger K_SPLIT costs more shuffles than
-//    the loads it saves at small tiles (measured). The K_SPLIT = 256 / ((U / UT) *
-//    (BT / RT)) <= 32 neighbouring lanes of one tile take every K_SPLIT-th chunk of k and
-//    add their sums with a reduce-scatter of warp shuffles. Rows of W and h are stored
-//    as float4 chunks XOR-swizzled by row, so the 8 lanes of a quarter warp read 8
+//  * The gate product (BT rows x 4U gates, over H) takes one of two forms, which the
+//    plan picks by shape (LayerPlan.product); both write the tile's sums to `part`.
+//  * "ffma", on the fp32 pipe, split over 256 threads: a thread takes the 4 gates of UT
+//    units for RT batch rows, a 4UT x RT register tile fed by float4 loads of W and h
+//    along k. A 16-byte shared-memory load of a warp takes at least 4 of the SM's
+//    1-per-clock wavefronts (one per quarter warp), and on the card the product's time
+//    follows that count plus the FMAs, so the larger the tile, the more FMAs each load
+//    feeds: RT = 8 (4 where BT = 4) and UT = 2 where BT = 32 (each load then feeds 32
+//    FMAs), else 1, since a larger K_SPLIT costs more shuffles than the loads it saves at
+//    small tiles (measured). The K_SPLIT = 256 / ((U / UT) * (BT / RT)) <= 32
+//    neighbouring lanes of one tile take every K_SPLIT-th chunk of k and add their sums
+//    with a reduce-scatter of warp shuffles. Rows of W and h are stored as float4 chunks
+//    XOR-swizzled by row (c ^ (r % 8)), so the 8 lanes of a quarter warp read 8
 //    different bank groups.
+//  * "mma", on the tensor cores in split TF32, float32-accurate: mma.sync m16n8k8 .tf32
+//    with the gates as M (U = 16: MT = 4 tiles of 16 rows of W, row-major), the tile's
+//    batch rows as N (NT = BT / 8 tiles of 8 rows of h, k contiguous) and H as K. Each fp32
+//    operand is split in registers as its fragment loads, x = hi + lo with hi = tf32(x)
+//    and lo = tf32(x - hi) (round to nearest, ties away, as cvt.rna.tf32.f32; ops/
+//    vq_cuda.split_tf32), |x - hi - lo| <= 2^-22 |x|, and each m16n8 tile accumulates
+//    W_hi.h_lo + W_lo.h_hi + W_hi.h_hi in fp32, a 16-wide k block at a time on the
+//    tensor core, the blocks' sums in fp32 registers (see mma_blocks). The 8 warps
+//    split K: warp w takes the 16-wide k blocks w, w + 8, ... of each half of H, all
+//    MT x NT tiles, so every element of W and h is loaded and split once a step. A
+//    thread's float4 of a row (k = 16 kb + 4 (lane % 4) + 0..3) feeds two k8 steps, k
+//    slots lane % 4 and lane % 4 + 4 taking its elements 0, 1 and then 2, 3 (the same
+//    permutation of k in A and B, so the product is unchanged). Rows are swizzled c ^
+//    4 (r % 2), so that the two rows of a quarter warp read different halves of the 8
+//    bank groups. The warps' partial sums then go, in a fixed order, through shared
+//    memory over the h tile (the region is widened where 8 x BT x 4U floats exceed the
+//    tile) and are summed, warp 0 to 7, into `part`. The split keeps the kernel within
+//    chip_smoke.py phase 7's float64 criterion (the error against a float64 run at most
+//    twice the plain fp32 version's + 1e-6), which a single TF32 pass would not meet.
+//    The plan takes it from BT = 16 (B >= 32 at H = 512 for both directions). At B = 1
+//    and 8 the tile has 4 rows, half of a padded 8-row tile would be waste, the barrier
+//    and the h tile's arrival set the pace, and the FFMA product stays; 8-row tiles were
+//    faster in split TF32 but missed phase 7's atol 1e-5 at one test shape, so they stay
+//    FFMA too (ops/lstm_cuda.plan_layer, which also keeps FFMA for non-resident plans and
+//    for U != 16; PERF.md has the measurements). The wrapper
+//    counts the launches that take it in ops/lstm_cuda.mma_launches. mma.sync's TF32
+//    rate, about half of wgmma's, sets the product's time (-DLSTM_ONE_TF32_PASS shows
+//    it); a wgmma form, W's fragments in registers (W and the h tile's halves do not fit
+//    shared memory together), waits on each k chunk before its registers are free and
+//    measured slower.
 //  * The h tile is loaded in two cp.async groups, chunks [0, HC/2) and [HC/2, HC), and
 //    the product starts on the first half while the second is in flight.
-//  * Every sum is taken in a fixed order (chunk by chunk, x y z w within a chunk, then a
-//    fixed shuffle tree): no atomics on values, so two calls give bitwise equal results.
-//    The gates use expf and tanhf; the build uses no fast-math intrinsics.
+//  * Every sum is taken in a fixed order (ffma: chunk by chunk, x y z w within a chunk,
+//    then a fixed shuffle tree; mma: the tensor cores' k steps in a fixed sequence, then
+//    the warps' partials 0 to 7): no atomics on values, so two calls give bitwise equal
+//    results. The gates use expf and tanhf; the build uses no fast-math intrinsics.
 //  * xp of the next tile (the next step's first tile, when a CTA has one) is prefetched
 //    with cp.async into the other half of a double buffer while the current one runs.
 //  * Ragged H and B are masked with bounds checks; device memory is not padded.
 
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr long long kSpinLimit = 1LL << 35;  // clock cycles, about 17 s at 1.98 GHz
 
 struct Layer {
@@ -84,8 +120,11 @@ struct Layer {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-// chunk c of row r is stored at chunk c ^ (r % 8) of that row
-__device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
+// chunk c of row r is stored at chunk c ^ (r % 8) of that row for the FFMA product, at
+// chunk c ^ 4 (r % 2) for the tensor-core one (HC is a multiple of 8, so both stay in
+// the row)
+template <bool MMA>
+__device__ __forceinline__ int swz(int r, int c) { return MMA ? c ^ ((r & 1) << 2) : c ^ (r & 7); }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -137,6 +176,88 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   return fmaf(a.w, b.w, acc);
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 does (to nearest, ties away from zero), in two
+// integer operations (as csrc/vq_nearest_code.cu)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32 (low 13 mantissa bits zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, fp32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The tensor-core gate product of this warp over the 16-wide k blocks kb0 + warp,
+// kb0 + warp + WARPS, ... below kb1 (see the note at the top): acc[mt][nt] is the m16n8
+// tile of gate rows 16 mt .. 16 mt + 15 (ws) and batch rows 8 nt .. 8 nt + 7 (hs). Each
+// block's 6 products of a tile (2 k8 steps x 3) accumulate from zero on the tensor core
+// and the block's sum is then added to acc in fp32 (round to nearest), so that the
+// tensor core's own accumulation, which is not rounded to nearest, never adds into the
+// running sum. Built with -DLSTM_ONE_TF32_PASS (a profiling aid, wrong in the last bits)
+// it issues the hi . hi products alone.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_blocks(const float4* ws, const float4* hs, int HC, int kb0,
+                                           int kb1, int warp, int lane,
+                                           float (&acc)[MT][NT][4]) {
+  const int g = lane >> 2, q = lane & 3;
+  for (int kb = kb0 + warp; kb < kb1; kb += WARPS) {
+    const int c = 4 * kb + q;
+    uint32_t bhi[2][NT][2], blo[2][NT][2];  // [k8 step][n tile][slot q, q + 4]
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int r = 8 * nt + g;
+      const float4 v = hs[r * HC + swz<true>(r, c)];
+      split_tf32(v.x, bhi[0][nt][0], blo[0][nt][0]);  // k slots q and q + 4 of step 0 take
+      split_tf32(v.y, bhi[0][nt][1], blo[0][nt][1]);  // elements 0 and 1, of step 1 2 and 3
+      split_tf32(v.z, bhi[1][nt][0], blo[1][nt][0]);
+      split_tf32(v.w, bhi[1][nt][1], blo[1][nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = 16 * mt + g;
+      const float4 v0 = ws[r * HC + swz<true>(r, c)];
+      const float4 v8 = ws[(r + 8) * HC + swz<true>(r + 8, c)];
+      uint32_t ahi[2][4], alo[2][4];  // [k8 step][rows g, g + 8 at slot q, then at q + 4]
+      split_tf32(v0.x, ahi[0][0], alo[0][0]);
+      split_tf32(v8.x, ahi[0][1], alo[0][1]);
+      split_tf32(v0.y, ahi[0][2], alo[0][2]);
+      split_tf32(v8.y, ahi[0][3], alo[0][3]);
+      split_tf32(v0.z, ahi[1][0], alo[1][0]);
+      split_tf32(v8.z, ahi[1][1], alo[1][1]);
+      split_tf32(v0.w, ahi[1][2], alo[1][2]);
+      split_tf32(v8.w, ahi[1][3], alo[1][3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#ifndef LSTM_ONE_TF32_PASS
+          mma_tf32(d, ahi[kk], blo[kk][nt]);
+          mma_tf32(d, alo[kk], bhi[kk][nt]);
+#endif
+          mma_tf32(d, ahi[kk], bhi[kk][nt]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mt][nt][k] += d[k];
+      }
+    }
+  }
+}
+
+// column of gate row r (of 64) in row n of a warp's partial sums: r ^ 8 ((n / 2) % 4), so
+// that the fragments' stores of a warp hit 32 different banks
+__device__ __forceinline__ int red_col(int n, int r) { return r ^ ((n & 6) << 2); }
+
 // One round of the reduce-scatter of V sums over the K_SPLIT lanes of a tile (lane bits
 // 0 .. log2 K_SPLIT - 1): at distance m = 2^ROUND a lane keeps one half of its sums
 // plus its partner's copy of that half; once one sum is left, both partners add. Every
@@ -184,8 +305,13 @@ __device__ long long g_phase_clocks[6];
   } while (0)
 #endif
 
-template <bool RESIDENT, int RT, int UT>
+// RT x UT: the FFMA product's register tile (NT = 0); NT: the tensor-core product's
+// 8-row tiles of h (RT = UT = 0; U = 16, so 4 tiles of 16 gate rows; resident W only)
+template <bool RESIDENT, int RT, int UT, int NT>
 __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
+  constexpr bool MMA = NT > 0;
+  constexpr int MT = 4;  // the tensor-core product's tiles of 16 of the 64 gate rows
+  static_assert(!MMA || RESIDENT, "the tensor-core product reads a resident W");
   // sums a thread holds: index (q * UT + e) * 4 + g for row q, unit e, gate g
   constexpr int V = 4 * UT * RT;
   extern __shared__ float4 smem4[];
@@ -201,15 +327,18 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
   const float* w = p.w + static_cast<size_t>(d) * four_h * H;
   int* counter = p.counters + d * gridDim.y + blockIdx.y;
 
+  // the h tile's region also holds the tensor-core product's partial sums of the warps
+  const int h_region = MMA ? max(BT * HC, WARPS * BT * U) : BT * HC;  // float4s
   float4* ws = smem4;                                  // [R][HC], swizzled (if RESIDENT)
   float4* hs = ws + (RESIDENT ? R * HC : 0);           // [BT][HC], swizzled
-  float* part = reinterpret_cast<float*>(hs + BT * HC);  // [BT][R], the gate products
+  float* part = reinterpret_cast<float*>(hs + h_region);  // [BT][R], the gate products
   float* xs = part + BT * R;                           // [2][BT][R]
   float* cs = xs + 2 * BT * R;                         // [BR][U]
 
   const int tid = threadIdx.x;
-  const int nbt = BT / RT, nut = U / UT;
-  const int n_split = THREADS / (nut * nbt);  // K_SPLIT, a power of two <= 32
+  constexpr int RT1 = RT > 0 ? RT : 1, UT1 = UT > 0 ? UT : 1;
+  const int nbt = BT / RT1, nut = U / UT1;
+  const int n_split = MMA ? 1 : THREADS / (nut * nbt);  // K_SPLIT, a power of two <= 32
   const int ks = tid % n_split;               // its chunks of k: ks, ks + K_SPLIT, ...
   const int u0 = (tid / n_split) % nut * UT;  // its units u0 .. u0 + UT - 1, 4 gates each
   const int bt = tid / (n_split * nut);       // its rows: bt, bt + nbt, bt + 2 nbt, ...
@@ -226,7 +355,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
         for (int i = 0; i < 4; ++i) e[i] = 4 * c + i < H ? src[i] : 0.f;
         v = make_float4(e[0], e[1], e[2], e[3]);
       }
-      ws[r * HC + swz(r, c)] = v;
+      ws[r * HC + swz<MMA>(r, c)] = v;
     }
   }
   for (int idx = tid; idx < p.BR * U; idx += THREADS) cs[idx] = 0.f;
@@ -282,7 +411,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
           const int bl = idx / half_hc, c = part_k * half_hc + idx % half_hc, b = tb + bl;
           const float* src =
               p.out + (static_cast<size_t>(t_prev) * B + b) * out_row + d * H + 4 * c;
-          float4* dst = hs + bl * HC + swz(bl, c);
+          float4* dst = hs + bl * HC + swz<MMA>(bl, c);
           if (aligned) {
             cp_async16_zfill(dst, b < row_end && 4 * c < H ? src : p.out,
                              b < row_end && 4 * c < H ? 16 : 0);
@@ -297,7 +426,50 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
       cp_async_wait<2>();  // this item's xp and the first half of h have landed
       __syncthreads();
       PHASE_MARK(1);
-      if (s > 0) {
+      if constexpr (MMA) {
+        if (s > 0) {
+          const int warp = tid / 32, lane = tid % 32;
+          float acc[MT][NT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+          const int kb_half = HC / 8;  // 16-wide k blocks in each half of H
+          mma_blocks<MT, NT>(ws, hs, HC, 0, kb_half, warp, lane, acc);
+          cp_async_wait<1>();  // the second half of h
+          __syncthreads();
+          mma_blocks<MT, NT>(ws, hs, HC, kb_half, 2 * kb_half, warp, lane, acc);
+          __syncthreads();  // every warp is done with hs: its partial sums go there
+          float* red = reinterpret_cast<float*>(hs) + warp * BT * R;  // [BT][R], red_col
+          const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {  // c0..c3: rows g, g, g + 8, g + 8
+                const int r = 16 * mt + g + 8 * (k >> 1), bl = 8 * nt + 2 * q + (k & 1);
+                red[bl * R + red_col(bl, r)] = acc[mt][nt][k];
+              }
+          __syncthreads();
+          const float4* red4 = reinterpret_cast<const float4*>(hs);
+          for (int idx = tid; idx < BT * U; idx += THREADS) {  // 4 gate rows at a time
+            const int bl = idx / U, c = red_col(bl, 4 * (idx % U)) / 4;
+            float4 v = red4[bl * U + c];
+#pragma unroll
+            for (int k = 1; k < WARPS; ++k) {
+              const float4 o = red4[(k * BT + bl) * U + c];
+              v.x += o.x;
+              v.y += o.y;
+              v.z += o.z;
+              v.w += o.w;
+            }
+            reinterpret_cast<float4*>(part)[idx] = v;
+          }
+        }
+      } else if (s > 0) {
         float v[V];
 #pragma unroll
         for (int j = 0; j < V; ++j) v[j] = 0.f;
@@ -316,7 +488,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
               for (int g = 0; g < 4; ++g) {
                 const int r = g * U + u0 + e;
                 if (RESIDENT)
-                  wv[e][g] = ws[r * HC + swz(r, c)];
+                  wv[e][g] = ws[r * HC + swz<MMA>(r, c)];
                 else
                   wv[e][g] = j0 + u0 + e < H ?
                       load4(w + (static_cast<size_t>(g) * H + j0 + u0 + e) * H + 4 * c, 4 * c,
@@ -326,7 +498,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
 #pragma unroll
             for (int q = 0; q < RT; ++q) {
               const int bl = bt + q * nbt;
-              const float4 hv = hs[bl * HC + swz(bl, c)];
+              const float4 hv = hs[bl * HC + swz<MMA>(bl, c)];
 #pragma unroll
               for (int e = 0; e < UT; ++e)
 #pragma unroll
@@ -386,10 +558,14 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
 #endif
 }
 
-size_t smem_bytes(int H, int U, int BT, int BR, bool resident) {
+// The shared memory of one CTA: W's slice if resident, the h tile (for the tensor-core
+// product at least the 8 warps' partial sums, 8 x BT x 4U floats), the gate products,
+// the double-buffered xp tile and the cell state
+size_t smem_bytes(int H, int U, int BT, int BR, bool resident, bool mma) {
   const size_t hc = static_cast<size_t>(((H + 3) / 4 + 7) / 8 * 8);
   const size_t r = 4 * static_cast<size_t>(U);
-  return 16 * ((resident ? r * hc : 0) + BT * hc) +
+  const size_t h_tile = BT * hc, partials = WARPS * static_cast<size_t>(BT) * U;  // float4s
+  return 16 * ((resident ? r * hc : 0) + (mma && partials > h_tile ? partials : h_tile)) +
          4 * (3 * BT * r + static_cast<size_t>(BR) * U);
 }
 
@@ -399,8 +575,17 @@ int tile_units_per_thread(int BT) { return BT >= 32 ? 2 : 1; }
 
 template <int RT, int UT>
 const void* kernel_for(bool resident) {
-  return resident ? reinterpret_cast<const void*>(lstm_layer_kernel<true, RT, UT>)
-                  : reinterpret_cast<const void*>(lstm_layer_kernel<false, RT, UT>);
+  return resident ? reinterpret_cast<const void*>(lstm_layer_kernel<true, RT, UT, 0>)
+                  : reinterpret_cast<const void*>(lstm_layer_kernel<false, RT, UT, 0>);
+}
+
+// the tensor-core variant for U units and a tile of BT rows (NT = BT / 8 tiles of 8), or
+// null where none is built: U = 16, BT in {8, 16, 32}
+const void* mma_kernel(int U, int BT) {
+  if (U != 16) return nullptr;
+  return BT == 8 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 1>)
+       : BT == 16 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 2>)
+       : BT == 32 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 4>) : nullptr;
 }
 
 }  // namespace
@@ -420,26 +605,29 @@ int lstm_device_limits(int* num_sms, int* smem_per_block) {
 
 // One LSTM layer of D directions (see the note at the top). xp (T, B, D*4H), w (D, 4H, H),
 // out (T, B, D*H): float32, row-major, contiguous, on the current device; counters:
-// D * ceil(B / BR) zeroed int32. The plan (U, BT, BR, resident) must keep every CTA
-// co-resident; BT is 4, 8, 16 or 32, and (U / UT) * (BT / RT) must divide 256 into at
-// most 32 (RT = 8 rows, 4 where BT = 4; UT = 2 units where BT = 32, else 1); the shared
-// memory it takes is smem_bytes(), which ops/lstm_cuda.py mirrors. Launches one
-// cooperative kernel on `stream` without synchronising and returns its error (0 =
-// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident, e.g.
-// on a shared card).
+// D * ceil(B / BR) zeroed int32. The plan (U, BT, BR, resident, mma) must keep every CTA
+// co-resident; BT is 4, 8, 16 or 32. The FFMA product (mma = 0) needs (U / UT) * (BT /
+// RT) to divide 256 into at most 32 (RT = 8 rows, 4 where BT = 4; UT = 2 units where BT =
+// 32, else 1); the tensor-core product (mma = 1) a resident W, U = 16 and BT in {8,
+// 16, 32}. The shared memory it takes is smem_bytes(), which ops/lstm_cuda.py
+// mirrors. Launches one cooperative kernel on `stream` without synchronising and
+// returns its error (0 = success; cudaErrorCooperativeLaunchTooLarge when the grid
+// cannot be co-resident, e.g. on a shared card).
 int lstm_layer(const float* xp, const float* w, float* out, int* counters, int T, int B,
-               int H, int D, int U, int BT, int BR, int resident, cudaStream_t stream) {
+               int H, int D, int U, int BT, int BR, int resident, int mma,
+               cudaStream_t stream) {
   if (T <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   const int rt = tile_rows_per_thread(BT), ut = tile_units_per_thread(BT);
   const int tiles = U % ut == 0 && BT % rt == 0 ? U / ut * (BT / rt) : 0;
   const int split = tiles > 0 && THREADS % tiles == 0 ? THREADS / tiles : 0;
-  if (D < 1 || D > 2 || BR < 1 || split < 1 || split > 32)
+  const void* fn = mma ? (resident ? mma_kernel(U, BT) : nullptr)
+                 : ut == 2 ? kernel_for<8, 2>(resident != 0)
+                 : rt == 8 ? kernel_for<8, 1>(resident != 0) : kernel_for<4, 1>(resident != 0);
+  if (D < 1 || D > 2 || BR < 1 || fn == nullptr || (!mma && (split < 1 || split > 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   Layer p{xp, w, out, counters, T, B, H, D, U, BT, BR, (H + U - 1) / U,
           ((H + 3) / 4 + 7) / 8 * 8};
-  const size_t smem = smem_bytes(H, U, BT, BR, resident != 0);
-  const void* fn = ut == 2 ? kernel_for<8, 2>(resident != 0)
-                 : rt == 8 ? kernel_for<8, 1>(resident != 0) : kernel_for<4, 1>(resident != 0);
+  const size_t smem = smem_bytes(H, U, BT, BR, resident != 0, mma != 0);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -28,6 +28,28 @@ that it went through the kernel; a launch recorded into a CUDA graph adds to
 ``captured`` instead (see ``ops/vq_cuda.py``). ``forward_flops`` adds up, beside
 ``launches``, the recurrent products of the executed launches (:func:`layer_flops`),
 which ``torch.utils.flop_counter.FlopCounterMode`` cannot see in a ctypes launch.
+
+The kernel computes each step's gate product ``h_{t-1} . W_hh^T`` in one of two ways,
+which :func:`plan_layer` picks by shape (``LayerPlan.product``; no flag or setting):
+
+- ``"mma"``: on the tensor cores, in split TF32: each float32 operand is split into
+  TF32 halves, x = hi + lo with |x - hi - lo| <= 2^-22 |x| (``ops/vq_cuda.split_tf32``),
+  and ``W_hi.h_lo + W_lo.h_hi + W_hi.h_hi`` accumulates in fp32. That is float32-class:
+  ``chip_smoke.py`` phase 7 holds the kernel to at most twice the plain fp32 version's
+  error against a float64 run, + 1e-6, which a single TF32 pass would not meet.
+  :func:`lstm_bidirectional_split_plain` is this arithmetic in plain PyTorch, a model
+  for the tests and ``chip_smoke.py`` that the port's path never calls. Taken where
+  W_hh's slice is resident, the CTA has 16 units (64 gate rows) and its tile has at
+  least ``MMA_MIN_TILE_ROWS`` = 16 batch rows, two of the mma's N: CaMN/DisCo's layers at
+  B >= 32 (H = 512, both directions), the training forward and ``cli.bench_train`` at
+  B = 64.
+- ``"ffma"``: on the fp32 pipe, everywhere else: B = 1 to 16 at H = 512 (evaluation,
+  serving, CaMN/DisCo at batch 8), where the per-step hand-off sets the pace and a 4-row
+  tile would fill half of the mma, and the non-resident plans (H = 1024 in both
+  directions).
+
+``mma_launches`` counts, within ``launches``, the executions whose plan took the
+tensor-core product (8 in a CaMN forward at B = 64, 0 at B = 8).
 """
 from __future__ import annotations
 
@@ -38,14 +60,21 @@ from typing import NamedTuple
 import torch
 
 from . import build
+from .vq_cuda import split_tf32
 
 launches = 0
 captured = 0  # launches recorded into CUDA graphs, not executed
 forward_flops = 0  # layer_flops of every launch counted in ``launches``
+mma_launches = 0  # launches counted in ``launches`` that took the tensor-core product
 
 THREADS = 256  # threads per CTA (csrc/lstm_sequence.cu)
+WARPS = THREADS // 32
 TILE_ROWS = (4, 8, 16, 32)  # batch rows per tile the kernel takes
 MAX_K_SPLIT = 32  # lanes of one warp that share a register tile's sums
+MMA_UNITS = 16  # units per CTA of the tensor-core product: 64 gate rows, 4 mma M tiles
+# the tile rows from which it is taken: 8-row tiles were faster, but (20, 16, 512) (an
+# 8-row tile) missed chip_smoke.py phase 7's atol 1e-5 against the plain version (PERF.md)
+MMA_MIN_TILE_ROWS = 16
 
 _fn = None
 
@@ -60,6 +89,7 @@ class LayerPlan(NamedTuple):
     directions: int     # D
     resident: bool      # W_hh's slice held in shared memory for the whole sequence
     smem_bytes: int
+    product: str = "ffma"  # the gate product: "mma" (split TF32) or "ffma" (fp32 FMA)
 
     @property
     def ctas(self) -> int:
@@ -77,14 +107,28 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(hidden: int, units: int, tile_rows: int, rows: int, resident: bool) -> int:
+def smem_bytes(hidden: int, units: int, tile_rows: int, rows: int, resident: bool,
+               product: str = "ffma") -> int:
     """Shared memory of one CTA: the swizzled W slice (if resident) and h tile, each row
-    padded to a multiple of 32 floats, the tile's gate products, the double-buffered xp
-    tile and the cell state. Mirrors ``smem_bytes`` in the CUDA source."""
+    padded to a multiple of 32 floats (for the tensor-core product, at least the 8 warps'
+    partial sums of the tile, which reuse the h tile's room), the tile's gate products,
+    the double-buffered xp tile and the cell state. Mirrors ``smem_bytes`` in the CUDA
+    source."""
     hc = _cdiv(_cdiv(hidden, 4), 8) * 8  # float4 chunks per row, a multiple of 8
     r = 4 * units
-    return 16 * ((r * hc if resident else 0) + tile_rows * hc) + \
+    h_region = tile_rows * hc
+    if product == "mma":
+        h_region = max(h_region, WARPS * tile_rows * units)
+    return 16 * ((r * hc if resident else 0) + h_region) + \
         4 * (3 * tile_rows * r + rows * units)
+
+
+def mma_fits(hidden: int, units: int, tile_rows: int, rows: int, resident: bool,
+             smem_per_block: int) -> bool:
+    """Whether the kernel has a tensor-core variant for this cut and its shared memory
+    fits: a resident W slice, ``MMA_UNITS`` units and tiles of 8, 16 or 32 rows."""
+    return resident and units == MMA_UNITS and tile_rows in (8, 16, 32) and \
+        smem_bytes(hidden, units, tile_rows, rows, resident, "mma") <= smem_per_block
 
 
 def k_split(units: int, tile_rows: int) -> int:
@@ -106,8 +150,10 @@ def plan_layer(T: int, B: int, H: int, D: int, num_sms: int,
     CTAs fit one per SM, and shared memory stays within ``smem_per_block``. Among those,
     the per-CTA gate product BR x 4U x H is the smallest; ties go to a resident W slice,
     then to fewer floats read from L2 per CTA and step (h, and W if not resident), fewer
-    tiles and fewer CTAs. Raises ValueError where no plan fits. (T does not change the
-    plan; it is taken for the record.)"""
+    tiles and fewer CTAs. The gate product is then the tensor cores' where the tile has
+    at least ``MMA_MIN_TILE_ROWS`` rows and :func:`mma_fits`, else FFMA (see the module
+    docstring). Raises ValueError where no plan fits. (T does not change the plan; it is
+    taken for the record.)"""
     if min(T, B, H) < 1 or D not in (1, 2):
         raise ValueError(f"no LSTM layer plan for T={T}, B={B}, H={H}, D={D}")
     best, best_key = None, None
@@ -141,6 +187,11 @@ def plan_layer(T: int, B: int, H: int, D: int, num_sms: int,
     if best is None:
         raise ValueError(f"the LSTM kernel has no plan for B={B}, H={H}, D={D} on "
                          f"{num_sms} SMs with {smem_per_block} bytes of shared memory")
+    if best.tile_rows >= MMA_MIN_TILE_ROWS and mma_fits(H, best.units, best.tile_rows,
+                                                        best.rows, best.resident,
+                                                        smem_per_block):
+        best = best._replace(product="mma", smem_bytes=smem_bytes(
+            H, best.units, best.tile_rows, best.rows, best.resident, "mma"))
     return best
 
 
@@ -162,10 +213,41 @@ def lstm_bidirectional_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
                              hidden: int) -> torch.Tensor:
     """Both directions in plain PyTorch: the reverse one runs on the flipped sequence and
     is flipped back. (T, B, 8H), (2, 4H, H) -> (T, B, 2H)."""
+    return _both_directions(lstm_direction_plain, x_proj, w_hh, hidden)
+
+
+def _both_directions(direction, x_proj, w_hh, hidden):
     four_h = 4 * hidden
-    fwd = lstm_direction_plain(x_proj[..., :four_h], w_hh[0], hidden)
-    rev = lstm_direction_plain(x_proj[..., four_h:].flip(0), w_hh[1], hidden).flip(0)
+    fwd = direction(x_proj[..., :four_h], w_hh[0], hidden)
+    rev = direction(x_proj[..., four_h:].flip(0), w_hh[1], hidden).flip(0)
     return torch.cat([fwd, rev], dim=-1)
+
+
+def lstm_direction_split_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                               hidden: int) -> torch.Tensor:
+    """The kernel's tensor-core arithmetic in plain PyTorch, one step at a time: the gate
+    product as fp32 products of TF32 halves, h_hi.W_lo + h_lo.W_hi + h_hi.W_hi
+    (:func:`~pantomatrix_tpu_torch.ops.vq_cuda.split_tf32`), the rest as
+    :func:`lstm_direction_plain`. A model for the tests and ``chip_smoke.py``; the port's
+    path never calls it. (T, B, 4H) float32 -> (T, B, H)."""
+    w_hi, w_lo = (part.T for part in split_tf32(w_hh))
+    h = x_proj.new_zeros(x_proj.shape[1], hidden)
+    c = torch.zeros_like(h)
+    hs = []
+    for xp in x_proj:
+        h_hi, h_lo = split_tf32(h)
+        i, f, g, o = (xp + (h_hi @ w_lo + h_lo @ w_hi + h_hi @ w_hi)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def lstm_bidirectional_split_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                                   hidden: int) -> torch.Tensor:
+    """Both directions of :func:`lstm_direction_split_plain`, as
+    :func:`lstm_bidirectional_plain` lays them out. (T, B, 8H), (2, 4H, H) -> (T, B, 2H)."""
+    return _both_directions(lstm_direction_split_plain, x_proj, w_hh, hidden)
 
 
 def _kernel():
@@ -173,8 +255,8 @@ def _kernel():
     if _fn is None:
         lib = build.load("lstm_sequence")
         fn = lib.lstm_layer
-        # xp, w, out, counters; T, B, H, D, U, BT, BR, resident; stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        # xp, w, out, counters; T, B, H, D, U, BT, BR, resident, mma; stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.lstm_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.lstm_device_limits.restype = ctypes.c_int
@@ -219,7 +301,7 @@ def _check(x_proj, w_hh, hidden, d):
 
 def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> torch.Tensor:
     """One kernel launch over a layer of ``d`` directions (inputs already checked)."""
-    global launches, captured, forward_flops
+    global launches, captured, forward_flops, mma_launches
     if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError("the LSTM kernel takes contiguous x_proj and w_hh")
     t, b, _ = x_proj.shape
@@ -235,13 +317,14 @@ def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int, d: int) -> to
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x_proj.data_ptr(), w_hh.data_ptr(), out.data_ptr(), counters.data_ptr(),
                  t, b, hidden, d, plan.units, plan.tile_rows, plan.rows, int(plan.resident),
-                 stream)
+                 int(plan.product == "mma"), stream)
     if err != 0:
         _raise(err, f"lstm_layer launch ({plan})")
     if torch.cuda.is_current_stream_capturing():
         captured += 1
     else:
         launches += 1
+        mma_launches += int(plan.product == "mma")
         forward_flops += layer_flops(t, b, hidden, d)
     return out
 
@@ -305,6 +388,7 @@ def lstm_bidirectional(x_proj: torch.Tensor, w_hh: torch.Tensor, hidden: int) ->
 
 
 __all__ = ["LayerPlan", "LstmLayerFunction", "captured", "forward_flops", "launches",
-           "layer_flops", "lstm_bidirectional",
-           "lstm_bidirectional_plain", "lstm_direction", "lstm_direction_plain", "plan_layer",
+           "layer_flops", "lstm_bidirectional", "lstm_bidirectional_plain",
+           "lstm_bidirectional_split_plain", "lstm_direction", "lstm_direction_plain",
+           "lstm_direction_split_plain", "mma_fits", "mma_launches", "plan_layer",
            "smem_bytes", "k_split"]

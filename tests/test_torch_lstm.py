@@ -13,6 +13,8 @@ is held to 2e-5 against JAX. At every shape the port is also held to the float64
 no further from it than twice the JAX result's distance plus 1e-6. The CUDA kernel
 itself runs only on the card (chip_smoke.py holds it against the plain version).
 """
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from pantomatrix_tpu.nn.lstm import _lstm_direction, init_lstm, lstm
 from pantomatrix_tpu.ops.lstm_pallas import lstm_sequence_pallas
 from pantomatrix_tpu_torch.convert import load_jax_params
 from pantomatrix_tpu_torch.nn.lstm import LSTM
-from pantomatrix_tpu_torch.ops import build, lstm_cuda
+from pantomatrix_tpu_torch.ops import build, lstm_cuda, vq_cuda
 
 torch.set_num_threads(2)
 
@@ -59,11 +61,12 @@ def test_plain_k2_matches_jax(t, b, h, reference):
 
 def test_wrapper_serves_cpu_with_the_plain_version_and_counts_no_launch():
     xp, w = _inputs(6, 3, 32, seed=5)
-    before = lstm_cuda.launches
+    before = (lstm_cuda.launches, lstm_cuda.mma_launches)
     got = lstm_cuda.lstm_direction(torch.from_numpy(xp), torch.from_numpy(w), 32)
     want = lstm_cuda.lstm_direction_plain(torch.from_numpy(xp), torch.from_numpy(w), 32)
     assert torch.equal(got, want)
-    assert lstm_cuda.launches == before  # the CPU path never reaches the kernel
+    # the CPU path never reaches the kernel
+    assert (lstm_cuda.launches, lstm_cuda.mma_launches) == before
 
 
 @pytest.mark.parametrize("xp_shape,w_shape,hidden,dtype,err", [
@@ -108,6 +111,18 @@ def test_lstm_module_names_shapes_and_init_follow_torch():
     torch.testing.assert_close(module(x).detach(), want.transpose(0, 1), rtol=0, atol=ATOL)
 
 
+def test_every_kernel_variant_keeps_the_name_the_benchmark_reads():
+    """The benchmark finds K2 in a device trace by the substring ``lstm_layer_kernel``
+    (benchmark/metrics/k2_roofline.offline.py): every __global__ function of the source,
+    whichever gate product it computes, carries it."""
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert names and all("lstm_layer_kernel" in n for n in names)
+    # both products are instantiations of that one template
+    assert "lstm_layer_kernel<true, 0, 0, 4>" in src
+    assert "lstm_layer_kernel<true, RT, UT, 0>" in src
+
+
 def test_kernel_source_builds_for_hopper_without_fast_math():
     assert (build.CSRC_DIR / "lstm_sequence.cu").is_file()
     assert build.library_path("lstm_sequence").parent == build.BUILD_DIR
@@ -127,7 +142,7 @@ H100_SMS, H100_SMEM = 132, 232448
 
 @pytest.mark.parametrize("d", [1, 2])
 @pytest.mark.parametrize("h", [48, 96, 128, 512, 1024])
-@pytest.mark.parametrize("b", [1, 5, 8, 13, 64, 128, 256])
+@pytest.mark.parametrize("b", [1, 5, 8, 13, 32, 64, 128, 256])
 def test_plan_layer_owns_every_cell_once_and_fits_the_card(b, h, d):
     plan = lstm_cuda.plan_layer(421, b, h, d, H100_SMS, H100_SMEM)
     owners = np.zeros((d, b, h), np.int64)
@@ -141,7 +156,7 @@ def test_plan_layer_owns_every_cell_once_and_fits_the_card(b, h, d):
     assert (owners == 1).all()
     assert plan.ctas <= H100_SMS
     assert plan.smem_bytes == lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows, plan.rows,
-                                                   plan.resident) <= H100_SMEM
+                                                   plan.resident, plan.product) <= H100_SMEM
     # the kernel splits its 256 threads into (row tile, unit, k split within a warp)
     assert plan.tile_rows in (4, 8, 16, 32)
     assert 1 <= lstm_cuda.k_split(plan.units, plan.tile_rows) <= 32
@@ -154,6 +169,51 @@ def test_plan_layer_keeps_w_hh_resident_at_the_path_shapes():
         plan = lstm_cuda.plan_layer(421, b, 512, 2, H100_SMS, H100_SMEM)
         assert plan.resident and plan.ctas == 128
         assert plan.rows * plan.units * plan.ctas == b * 512 * 2
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("h", [48, 512, 1024])
+@pytest.mark.parametrize("b", [1, 5, 8, 13, 32, 64, 128, 256])
+def test_plan_layer_takes_the_tensor_cores_where_the_tile_fills_the_mma(b, h, d):
+    """The product follows the shape alone: split TF32 on the tensor cores where W_hh's
+    slice is resident, the CTA has 16 units (64 gate rows), its tile has at least
+    MMA_MIN_TILE_ROWS batch rows and the warps' partial sums fit shared memory; FFMA
+    otherwise. The cut of the card does not depend on the product."""
+    plan = lstm_cuda.plan_layer(421, b, h, d, H100_SMS, H100_SMEM)
+    assert plan.product in ("ffma", "mma")
+    mma_smem = lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows, plan.rows, plan.resident,
+                                    "mma")
+    want = plan.resident and plan.units == 16 and \
+        plan.tile_rows >= lstm_cuda.MMA_MIN_TILE_ROWS and mma_smem <= H100_SMEM
+    assert (plan.product == "mma") == want
+    ffma_plan = plan._replace(product="ffma", smem_bytes=lstm_cuda.smem_bytes(
+        h, plan.units, plan.tile_rows, plan.rows, plan.resident))
+    # the same cut as the FFMA-only planner would make: only the product and its memory
+    assert 1 <= lstm_cuda.k_split(ffma_plan.units, ffma_plan.tile_rows) <= 32
+    assert ffma_plan.smem_bytes <= plan.smem_bytes <= H100_SMEM
+    if plan.product == "mma":
+        assert lstm_cuda.mma_fits(h, plan.units, plan.tile_rows, plan.rows, plan.resident,
+                                  H100_SMEM)
+
+
+@pytest.mark.parametrize("t,b,h,d,product", [
+    (421, 64, 512, 2, "mma"),   # CaMN/DisCo offline at batch 64: the benchmark's cell
+    (421, 32, 512, 2, "mma"),
+    (421, 32, 512, 1, "ffma"),  # an 8-row tile (see MMA_MIN_TILE_ROWS)
+    (421, 16, 512, 2, "ffma"),
+    (421, 8, 512, 2, "ffma"),   # CaMN/DisCo at batch 8: a 4-row tile
+    (421, 1, 512, 2, "ffma"),
+    (960, 1, 512, 2, "ffma"),   # evaluation's take at batch 1
+    (64, 64, 512, 2, "mma"),    # the training forward
+    (127, 64, 512, 2, "mma"),   # cli.bench_train
+    (421, 64, 1024, 2, "ffma"),  # W_hh not resident
+])
+def test_plan_layer_product_at_the_path_shapes(t, b, h, d, product):
+    plan = lstm_cuda.plan_layer(t, b, h, d, H100_SMS, H100_SMEM)
+    assert plan.product == product
+    if (b, h) == (64, 512):  # the partial sums fit in the h tile's room: no more memory
+        assert plan.smem_bytes == lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows,
+                                                       plan.rows, plan.resident)
 
 
 def test_plan_layer_raises_where_nothing_fits():
@@ -236,3 +296,55 @@ def test_bidirectional_wrapper_rejects_bad_inputs(case):
         w = w.to("meta")
     with pytest.raises(err):
         lstm_cuda.lstm_bidirectional(xp, w, h)
+
+
+# --- the tensor-core product's arithmetic, as plain PyTorch ---
+
+@pytest.mark.parametrize("dist", ["jax_test", "torch_default"])
+@pytest.mark.parametrize("t,b,h", SHAPES)
+def test_split_tf32_model_is_float32_accurate(t, b, h, dist):
+    """lstm_bidirectional_split_plain (the kernel's split-TF32 gate product: W_hi.h_lo +
+    W_lo.h_hi + W_hi.h_hi, fp32 accumulation) against a float64 recurrence, held to
+    chip_smoke.py phase 7's criterion: no further from it than twice the plain fp32
+    version + 1e-6. A single TF32 pass is not (checked beside it)."""
+    rng = np.random.RandomState(11)
+    if dist == "jax_test":
+        xp = rng.normal(0, 1, (t, b, 8 * h))
+        w = rng.normal(0, 0.2, (2, 4 * h, h))
+    else:  # an inner layer of CaMN: torch-default weights on N(0, 1) input of width 2H
+        bound = h ** -0.5
+        x = rng.normal(0, 1, (t, b, 2 * h))
+        xp = x @ rng.uniform(-bound, bound, (8 * h, 2 * h)).T + \
+            rng.uniform(-2 * bound, 2 * bound, 8 * h)
+        w = rng.uniform(-bound, bound, (2, 4 * h, h))
+    xp, w = torch.from_numpy(xp.astype(np.float32)), torch.from_numpy(w.astype(np.float32))
+    exact = lstm_cuda.lstm_bidirectional_plain(xp.double(), w.double(), h)
+    plain = lstm_cuda.lstm_bidirectional_plain(xp, w, h)
+    split = lstm_cuda.lstm_bidirectional_split_plain(xp, w, h)
+    assert split.shape == plain.shape == (t, b, 2 * h) and split.dtype == torch.float32
+    plain_err = float((plain.double() - exact).abs().max())
+    assert float((split.double() - exact).abs().max()) <= 2 * plain_err + 1e-6
+    # the halves are the two directions of the split model, laid out as the plain version's
+    fwd = lstm_cuda.lstm_direction_split_plain(xp[..., :4 * h], w[0], h)
+    assert torch.equal(split[..., :h], fwd)
+    # one TF32 pass (operands rounded once, no lo terms) misses the criterion
+    one_pass = lstm_cuda.lstm_bidirectional_plain(
+        xp, vq_cuda.split_tf32(w)[0], h) if dist == "jax_test" else None
+    if one_pass is not None:
+        assert float((one_pass.double() - exact).abs().max()) > 2 * plain_err + 1e-6
+
+
+def test_split_tf32_model_splits_both_operands():
+    """The split leaves at most 2^-22 |x| out; the model's product takes W_hh's lo terms
+    (dropping them moves the result) and stays within the kernel test's tolerance of the
+    plain version."""
+    rng = np.random.RandomState(12)
+    xp = torch.from_numpy(rng.normal(0, 1, (6, 3, 4 * 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.3, (4 * 16, 16)).astype(np.float32))
+    w_hi, w_lo = vq_cuda.split_tf32(w)
+    assert float(w_lo.abs().max()) > 0
+    assert bool(((w.double() - w_hi.double() - w_lo.double()).abs()
+                 <= 2.0 ** -22 * w.double().abs()).all())
+    got = lstm_cuda.lstm_direction_split_plain(xp, w, 16)
+    assert float((got - lstm_cuda.lstm_direction_plain(xp, w, 16)).abs().max()) < ATOL
+    assert not torch.equal(lstm_cuda.lstm_direction_split_plain(xp, w_hi, 16), got)
