@@ -7,7 +7,8 @@ param tree and whose ``forward`` is ``f``: ``mlp`` -> :class:`MLP`, ``basic_bloc
 :class:`ResBlock`, ``vq_encoder`` -> :class:`VQEncoder`, ``vq_decoder`` ->
 :class:`VQDecoder`. Stacks are ``nn.Sequential`` so their keys carry torch's
 sequential numbering (``main.0``, ``main.2``, ...), activations included.
-All activations are channels-last (B, L, C).
+All activations are channels-last (B, L, C). :class:`FoldedWavEncoder`, which has no
+JAX counterpart, is the WavEncoder of the low-precision copy of a model.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm1d, Conv1d, Linear, dropout, leaky_relu
+from .layers import BatchNorm1d, Conv1d, Linear, dropout, fold_batch_norm, leaky_relu
 
 
 class MLP(nn.Module):
@@ -36,7 +38,11 @@ class MLP(nn.Module):
 class BasicBlock(nn.Module):
     """1-D residual block: conv1(k, stride, pad=first_dilation) -> BN -> LeakyReLU(0.01)
     -> conv2(k, 1, pad=k//2) -> BN, [+ conv/BN downsample on the shortcut], add,
-    LeakyReLU(0.01)."""
+    LeakyReLU(0.01).
+
+    This is the float32 parity path's and training's arithmetic, each BatchNorm a pass of
+    its own. The low-precision copy of an eval-mode WavEncoder runs these blocks as
+    :class:`FoldedWavEncoder`: each BatchNorm folded into the conv before it."""
 
     def __init__(self, inplanes: int, planes: int, ker_size: int, stride: int,
                  first_dilation: int, downsample: bool, *, generator: torch.Generator):
@@ -114,6 +120,67 @@ class WavEncoder(nn.Module):
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         return self.feat_extractor(wav[..., None])
+
+
+class FoldedWavEncoder(nn.Module):
+    """An eval-mode :class:`WavEncoder` as the low-precision copy of a model runs it
+    (``utils/precision.cast_floating``), with its arithmetic up to rounding:
+
+    - each BatchNorm is folded into the conv before it (``nn/layers.fold_batch_norm``,
+      in float32 from the encoder's float32 tensors, rounded once to ``dtype``), and on a
+      block with a downsample the second conv's bias is added to the shortcut conv's, so
+      a block runs its convs, a bias add for each conv that keeps a bias, the residual
+      add and two LeakyReLUs;
+    - the activations stay in one layout from the first conv to the last: (B, C, 1, L)
+      in torch's ``channels_last`` format, which is the port's channels-last (B, L, C) in
+      memory and the NHWC layout that cuDNN's low-precision kernels take natively, so
+      nothing is transposed or converted between the convs. Its weights are stored
+      ``channels_last`` too, which makes PyTorch pick that format at the first conv,
+      whose one-channel input fits either format;
+    - the LeakyReLUs run in place, and the residual is added into the second conv's
+      output, which nothing else reads.
+
+    (B, samples) -> (B, frames, channels), contiguous. Its tensors are parameters
+    without gradients, under keys of its own: it is made from a WavEncoder, never
+    loaded."""
+
+    def __init__(self, encoder: WavEncoder, dtype: torch.dtype):
+        super().__init__()
+        self.blocks = nn.ModuleList()
+        self.geometry = []  # per block: stride, first padding, second padding
+        for block in encoder.feat_extractor:
+            w1, b1 = fold_batch_norm(block.conv1, block.bn1)
+            w2, b2 = fold_batch_norm(block.conv2, block.bn2)
+            tensors = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
+            if block.downsample is not None:
+                wd, bd = fold_batch_norm(*block.downsample)
+                tensors.update(wd=wd, bd=bd + tensors.pop("b2"))
+            self.blocks.append(nn.ParameterDict({
+                k: nn.Parameter(_channels_last(t) if t.dim() == 3 else t, requires_grad=False)
+                for k, t in ((k, t.to(dtype)) for k, t in tensors.items())}))
+            self.geometry.append((block.conv1.stride, block.conv1.padding,
+                                  block.conv2.padding))
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        x = wav[:, None, None, :]
+        for p, (stride, pad1, pad2) in zip(self.blocks, self.geometry):
+            y = F.leaky_relu_(F.conv2d(x, p["w1"], p["b1"], (1, stride), (0, pad1)), 0.01)
+            y = F.conv2d(y, p["w2"], p.get("b2"), 1, (0, pad2))
+            y += F.conv2d(x, p["wd"], p["bd"], (1, stride), (0, pad1)) if "wd" in p else x
+            x = F.leaky_relu_(y, 0.01)
+        return x[:, :, 0].transpose(1, 2)
+
+
+def _channels_last(weight: torch.Tensor) -> torch.Tensor:
+    """A (Cout, Cin, K) conv weight as (Cout, Cin, 1, K) in ``channels_last`` memory,
+    with exactly the strides torch gives that format. Where Cin is 1 the size-1 dims'
+    strides alone tell the formats apart (``.contiguous(memory_format=...)`` leaves them
+    as they were), and PyTorch would pick NCHW for the first conv, whose input has one
+    channel, and copy its output at the next conv."""
+    cout, cin, k = weight.shape
+    out = torch.empty_strided((cout, cin, 1, k), (k * cin, 1, k * cin, cin),
+                              dtype=weight.dtype, device=weight.device)
+    return out.copy_(weight[:, :, None])
 
 
 class ResBlock(nn.Module):
@@ -201,6 +268,7 @@ def periodic_positional_encoding(pe: torch.Tensor, x: torch.Tensor, dropout_rate
 
 __all__ = [
     "BasicBlock",
+    "FoldedWavEncoder",
     "MLP",
     "ResBlock",
     "VQDecoder",

@@ -3,7 +3,9 @@ parameters under the JAX package's ``state_dict`` paths (``nn/layers.py`` there)
 
 Activations are channels-last ``(batch, length, channels)`` at every public function,
 as in the JAX package; weights keep torch layout, so ``conv1d`` transposes to torch's
-``(B, C, L)`` inside.
+``(B, C, L)`` inside (which PyTorch makes contiguous before cuDNN sees it). The WavEncoder
+of the low-precision copy keeps its activations channels-last between its convs instead
+(``nn/blocks.FoldedWavEncoder``).
 
 Modes follow ``nn.Module.training``, but every module here is built in eval mode (the
 inference paths never call ``.eval()``); ``model.train()`` turns training on. In eval
@@ -89,12 +91,26 @@ def batch_norm1d(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch
     """Eval-mode BatchNorm1d over the last (channel) dim, on running statistics.
 
     Under bfloat16/float16 activations the per-channel scale and shift are computed in
-    float32 and applied in the activation dtype, as the JAX package does."""
+    float32 and applied in the activation dtype on every call, as the JAX package does.
+    The low-precision copy's WavEncoder does not call this: its BatchNorms are folded
+    into the convs before them once, when the copy is made (:func:`fold_batch_norm`)."""
     if x.dtype in LOW_PRECISION:
         scale = torch.rsqrt(running_var.float() + eps) * weight.float()
         shift = bias.float() - running_mean.float() * scale
         return x * scale.to(x.dtype) + shift.to(x.dtype)
     return (x - running_mean) * (torch.rsqrt(running_var + eps) * weight) + bias
+
+
+def fold_batch_norm(conv: "Conv1d", bn: "BatchNorm1d"):
+    """The float32 weight and bias of one conv equal to ``conv`` followed by ``bn`` in
+    eval mode: ``w' = w * s`` and ``b' = (b - mean) * s + beta`` with
+    ``s = gamma / sqrt(var + eps)``, computed from the modules' float32 tensors (the
+    caller rounds the result once to its compute dtype)."""
+    with torch.no_grad():
+        scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        weight = conv.weight.float() * scale[:, None, None]
+        bias = (conv.bias.float() - bn.running_mean.float()) * scale + bn.bias.float()
+    return weight, bias
 
 
 def batch_norm1d_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -299,6 +315,7 @@ class BatchNorm1d(nn.Module):
     statistics and the count are the global batch's (:func:`batch_norm1d_train`)."""
 
     momentum = 0.1
+    eps = 1e-5
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -311,8 +328,9 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return batch_norm1d(x, self.running_mean, self.running_var, self.weight, self.bias)
-        y, mean, var = batch_norm1d_train(x, self.weight, self.bias)
+            return batch_norm1d(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                self.eps)
+        y, mean, var = batch_norm1d_train(x, self.weight, self.bias, self.eps)
         if not getattr(_local, "frozen", False):
             shard = current_batch_shard()
             n = x.numel() // x.shape[-1] * (shard.count if shard is not None else 1)
@@ -349,6 +367,7 @@ __all__ = [
     "dropout",
     "dropout_rng",
     "embedding",
+    "fold_batch_norm",
     "frozen_running_stats",
     "layer_norm",
     "leaky_relu",

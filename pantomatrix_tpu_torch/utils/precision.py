@@ -9,10 +9,19 @@ are. Numerical safety lives in the primitives, as in the JAX package: ``layer_no
 work in float32 whatever the activation dtype (``nn/layers.py``, ``nn/attention.py``,
 ``core/integrate.py``), and the VQ tokenizer suite stays float32.
 
+One module is not a plain cast: an eval-mode WavEncoder becomes a
+:class:`~pantomatrix_tpu_torch.nn.blocks.FoldedWavEncoder` in the copy, its BatchNorms
+folded into its convs (computed in float32 from the original's float32 tensors, rounded
+once) and its activations channels-last between its convs. The JAX package applies
+each BatchNorm's scale and shift per call; the fold gives the same arithmetic up to
+rounding. A WavEncoder with a BatchNorm in train mode is cast, not folded. The
+original module, its ``state_dict`` and its loading are untouched.
+
 The JAX package casts the parameter tree once per call. Here a cast copies every
 module of the tree on the host, which costs more than 1% of a small call, so
-``cast_once`` keeps the cast copy on the module and reuses it while the weights are
-unchanged: a second, resident copy of the weights in the compute dtype.
+``cast_once`` keeps the cast copy on the module and reuses it while the weights and the
+modules' modes are unchanged: a second, resident copy of the weights in the compute
+dtype.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+
+from ..nn.blocks import FoldedWavEncoder, WavEncoder
+from ..nn.layers import BatchNorm1d
 
 _COPIES = "_compute_dtype_copies"  # attribute holding cast_once's copies on a module
 
@@ -41,11 +53,17 @@ def compute_dtype_of(name: Union[None, str, torch.dtype]) -> Optional[torch.dtyp
 
 def cast_floating(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``module`` with every floating parameter and buffer cast to ``dtype``;
-    integer buffers are shared with ``module``, not copied."""
+    integer buffers are shared with ``module``, not copied. Each WavEncoder of
+    ``module`` whose BatchNorms are all in eval mode is a ``FoldedWavEncoder`` in the
+    copy."""
     memo = {}
     copies = module.__dict__.get(_COPIES)
     if copies is not None:
         memo[id(copies)] = {}
+    for m in module.modules():
+        if isinstance(m, WavEncoder) and not any(b.training for b in m.modules()
+                                                 if isinstance(b, BatchNorm1d)):
+            memo[id(m)] = FoldedWavEncoder(m, dtype)
     for t in itertools.chain(module.parameters(), module.buffers()):
         if t.is_floating_point():
             cast = t.detach().to(dtype)
@@ -57,17 +75,21 @@ def cast_floating(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def _weights_key(module: nn.Module):
-    """Changes when a parameter or buffer is replaced, moved or written in place. Read
-    from each module's own tensor dicts: ``parameters()`` builds every tensor's name,
-    which costs twice as long, and this runs on every call."""
-    return tuple((t.data_ptr(), t._version) for m in module.modules()
-                 for t in itertools.chain(m._parameters.values(), m._buffers.values())
-                 if t is not None)
+    """Changes when a parameter or buffer is replaced, moved or written in place, and
+    when a module's mode changes (the copy folds eval-mode WavEncoders only). Read from
+    each module's own tensor dicts: ``parameters()`` builds every tensor's name, which
+    costs twice as long, and this runs on every call."""
+    modules = list(module.modules())
+    return (tuple(m.training for m in modules),
+            tuple((t.data_ptr(), t._version) for m in modules
+                  for t in itertools.chain(m._parameters.values(), m._buffers.values())
+                  if t is not None))
 
 
 def cast_once(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
     """``module`` itself when ``dtype`` is None, else ``cast_floating(module, dtype)``,
-    made on the first call and kept on ``module`` until its weights change."""
+    made on the first call and kept on ``module`` until its weights or a module's mode
+    change."""
     if dtype is None:
         return module
     copies = module.__dict__.setdefault(_COPIES, {})
