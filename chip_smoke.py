@@ -208,6 +208,9 @@ K1_SHAPES = [
     (8 * 64, 256, 256), (8 * 60, 256, 256), (8 * 600, 256, 256),
     # ... and batch 128 x 60 s, whose final decode is the headline shape
     (128 * 64, 256, 256), (128 * 60, 256, 256), (128 * 1800, 256, 256),
+    # ... the bf16 window steps' and remainder's seed decode over the heads' last 11 frames
+    # (models/emage.seed_decode_frames) at batch 128, 8 and 1
+    (128 * 11, 256, 256), (8 * 11, 256, 256), (11, 256, 256),
     # evaluation at batch 1: the AR window and remainder window of a take, and the VQ
     # round trip and final decode of a 64 s take
     (64, 256, 256), (60, 256, 256), (1920, 256, 256),
