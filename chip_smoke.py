@@ -49,8 +49,9 @@ Phases, each of which raises on failure (nothing is caught):
      outputs bf16 and decoded outputs fp32, 11 K1 launches, decoded poses correlated
      with the fp32 run) and at 128 x 60 s (31 K1 launches); CaMN and DisCo at batch 8
      and 64 x 28.4 s in bf16 against fp32 (rot6d correlated > 0.98, 8 and 4 K2
-     launches a forward); wall times of the four cells in bf16 beside fp32, taken in
-     turns; the weights' cast and the LSTM x_proj upcast on the card; one EMAGE window
+     launches a forward); wall times of these runs, bf16 beside fp32, in turns, but for
+     the benchmark cells' own (EMAGE 128 x 60 s and CaMN 64 x 28.4 s in bf16); the
+     weights' cast and the LSTM x_proj upcast on the card; one EMAGE window
      in bf16 against fp32 on the same inputs (every network output correlated > 0.99,
      head indices agreeing on > 95% of frames outside near-ties of the random weights'
      logits, see head_agreement); the EMAGE and CaMN CLIs with --compute_dtype
@@ -58,10 +59,13 @@ Phases, each of which raises on failure (nothing is caught):
  13. the window step as a CUDA graph (models/emage_graph.py) against the eager step on
      the same inputs, at batch 8 and 128, in fp32, bf16 and bf16 with batched_wav
      features: fp32 within 1e-5, bf16 within one bf16 ulp, head indices equal, bitwise
-     equality logged, K1 counted once per replay; CUDA-event ms per window of each; then
-     the wall of EMAGE 8 x 20 s and 128 x 60 s (inference + decode) with graphs against
-     the eager loop, in turns, in each mode, with the device's idle share of the graph
-     paths at 8 x 20 s (kernel time under torch.profiler over the unprofiled median wall);
+     equality logged, K1 counted once per replay; CUDA-event ms per window of each; a
+     float32 window's seed decoded from the heads' last seed_decode_frames (11) frames
+     bitwise equal to the seed decoded from all 64, at 1, 8 and 128 rows; then the wall
+     of EMAGE (inference + decode) with graphs against the eager loop, in turns, at
+     8 x 20 s in each mode and at 128 x 60 s in fp32, with the device's idle share of the
+     graph paths at 8 x 20 s (kernel time under torch.profiler over the unprofiled median
+     wall);
  14. streaming: StreamingEmageGenerator at batch 1 against offline emage_inference
      (latents within 1e-5, head indices and frame count equal); a StreamingPool of 8
      uneven sessions (frame counts equal to offline, first-window latents correlated
@@ -69,9 +73,8 @@ Phases, each of which raises on failure (nothing is caught):
      previous chunk); the bench_stream protocol at N = 1 and 64 in fp32 and bf16;
  15. the daemon: MotionServer on 127.0.0.1, two MotionClients over HTTP with 3 s of
      audio each, frames as expected and finite, equal to an in-process StreamingPool;
- 16. SequenceGenerator for CaMN and DisCo at batch 8 (8 and 4 K2 launches), python -m
-     pantomatrix_tpu_torch.bench once (mfu < 1), and entry() at full width. Phases
-     13-16 write outputs/chip_smoke_serving.json;
+ 16. SequenceGenerator for CaMN and DisCo at batch 8 (8 and 4 K2 launches) and entry()
+     at full width. Phases 13-16 write outputs/chip_smoke_serving.json;
  17. evaluation: a synthetic BEAT2 layout (speaker 2, 4 test takes of 64 s), a synthetic
      SMPL-X archive at the real archive's shapes (V = 10475, F = 20908, SMPLX_MODEL_PATH),
      a random AESKConv state dict as emage_evaltools/AESKConv_240_100.bin and full-width
@@ -170,12 +173,11 @@ Phases, each of which raises on failure (nothing is caught):
 Depth cut to keep the whole run inside its limit (with phase 22): phase 13 times the
 128 x 60 s calls in 2 turns (3 before) and profiles only the graph paths at 8 x 20 s (all
 six, and the graph paths at 128 x 60 s, before), phase 14 sweeps bench_stream at N = 1
-and 64 (1, 8, 32, 64 before), phase 16 runs the bench at --reps 2 --iters 1 (3 and 2
-before), phase 17 runs its five CLI runs at once, phase 18d its three families' CLI runs
-at once and phase 21 its world-1 CLIs beside (b) and (c) (one after another before; their
-walls are concurrent ones), phase 18c takes 6 Adam steps a cell (12 before), phase 19c 10
-VQ steps (20 before). Every check keeps its bound and every kernel shape stays checked.
-It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
+and 64 (1, 8, 32, 64 before), phase 17 runs its five CLI runs at once, phase 18d its three
+families' CLI runs at once and phase 21 its world-1 CLIs beside (b) and (c) (one after
+another before; their walls are concurrent ones), phase 18c takes 6 Adam steps a cell (12
+before), phase 19c 10 VQ steps (20 before). Every check keeps its bound and every kernel
+shape stays checked. It ends with a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or of pantomatrix_tpu.
 """
 from __future__ import annotations
@@ -208,7 +210,7 @@ K1_SHAPES = [
     (8 * 64, 256, 256), (8 * 60, 256, 256), (8 * 600, 256, 256),
     # ... and batch 128 x 60 s, whose final decode is the headline shape
     (128 * 64, 256, 256), (128 * 60, 256, 256), (128 * 1800, 256, 256),
-    # ... the bf16 window steps' and remainder's seed decode over the heads' last 11 frames
+    # ... the window steps' and remainder's seed decode over the heads' last 11 frames
     # (models/emage.seed_decode_frames) at batch 128, 8 and 1
     (128 * 11, 256, 256), (8 * 11, 256, 256), (11, 256, 256),
     # evaluation at batch 1: the AR window and remainder window of a take, and the VQ
@@ -978,14 +980,14 @@ def phase_bf16(card):
             result["lstm_runs"].append(row)
             log(f"bf16 serving: {row}")
 
-    # wall times of the four cells, bf16 beside fp32, in turns
+    # wall times, bf16 beside fp32, in turns, where no benchmark cell takes them
     timings = []
     for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, 3)):
         audio, spk = emage_inputs[(bs, seconds)]
-        # batched_wav only where its gate lets it act (8 x 20 s: 72 window-rows)
+        # at 128 x 60 s fp32 only: bf16 there is emage-offline-bf16 (BENCHMARK.json)
         calls = {name: (lambda mode=mode: generate(audio, spk, **mode))
                  for name, mode in modes.items()
-                 if (bs, seconds) == BF16_EMAGE_CELLS[0] or name != "bf16_batched_wav"}
+                 if (bs, seconds) == BF16_EMAGE_CELLS[0] or name == "fp32"}
         for name, stats in timed_in_turns(calls, reps).items():
             timings.append({"cell": f"EMAGE {bs} x {seconds} s", "mode": name, "wall_s": stats,
                             "realtime_factor": bs * seconds / stats["median"]})
@@ -995,8 +997,10 @@ def phase_bf16(card):
 
             def call(dt=None, m=m, audio=audio):
                 m(*audio, compute_dtype=dt)
-            for mode, stats in timed_in_turns({"fp32": call,
-                                               "bf16": lambda: call("bfloat16")}).items():
+            calls = {"fp32": call, "bf16": lambda: call("bfloat16")}
+            if (name, bs) == ("camn", 64):  # bf16 there is camn-offline-bf16
+                del calls["bf16"]
+            for mode, stats in timed_in_turns(calls).items():
                 timings.append({"cell": f"{name} {bs} x {LSTM_SECONDS} s", "mode": mode,
                                 "wall_s": stats, "realtime_factor": bs * LSTM_SECONDS
                                 / stats["median"]})
@@ -1055,6 +1059,7 @@ GRAPH_MODES = {"fp32": (None, False), "bf16": ("bfloat16", False),
                "bf16_batched_wav": ("bfloat16", True)}
 GRAPH_FP32_ATOL = 1e-5
 GRAPH_LONG_REPS = 2  # turns of the 128 x 60 s calls
+TAIL_SEED_BATCHES = (1, 8, 128)
 PUMP_SESSIONS = (1, 64)  # bench_stream's N
 
 
@@ -1083,6 +1088,38 @@ def window_inputs(model, bs, mode, g):
     mask[:, :cfg.seed_frames] = 0
     feats = batched_audio_features(m, audio, 1)[0] if features else None
     return m, (audio, spk, motion, cast(mask)), feats
+
+
+def tail_seed_check(model, vq, g) -> list:
+    """At each of TAIL_SEED_BATCHES rows, a float32 window's seed decoded from the heads'
+    last seed_decode_frames (11) frames against the seed decoded from all 64: bitwise
+    equal, else it raises."""
+    from pantomatrix_tpu_torch.models import emage
+    from pantomatrix_tpu_torch.models.emage_vq import vq_decode
+    from pantomatrix_tpu_torch.nn.layers import strict_fp32
+
+    cfg = model.config
+    tail = emage.seed_decode_frames(cfg.seed_frames, vq, cfg.pose_length)
+    rows = []
+    for bs in TAIL_SEED_BATCHES:
+        _, ins, _ = window_inputs(model, bs, "fp32", g)
+        with torch.no_grad(), strict_fp32():
+            net = emage.emage_forward(model, *ins)
+
+            def seed(frames):
+                heads = {k: v[:, -frames:] for k, v in net.items()}
+                out = vq_decode(vq, **emage._select_decode_inputs(cfg, heads))
+                return out["all_motion4inference"][:, -cfg.seed_frames:]
+            want, got = seed(cfg.pose_length), seed(tail)
+        row = {"batch": bs, "frames": tail, "bitwise_equal": torch.equal(got, want),
+               "max_abs_err": float((got - want).abs().max())}
+        log(f"tail seed: {json.dumps(row)}")
+        if not row["bitwise_equal"]:
+            raise AssertionError(f"fp32 seed from the last {tail} frames differs from the "
+                                 f"whole window's: {row}")
+        rows.append(row)
+        del net, ins
+    return rows
 
 
 def profiled_kernel_ms(fn):
@@ -1147,6 +1184,7 @@ def phase_graph(card, model, vq):
             result["windows"].append(row)
             log(f"graph step: {json.dumps(row)}")
             del want, got, net, last, ins, feats
+    result["tail_seed"] = tail_seed_check(model, vq, g)
 
     # the AR call with graphs (emage_inference) against the eager loop, in turns
     for (bs, seconds), reps in zip(BF16_EMAGE_CELLS, (BF16_REPS, GRAPH_LONG_REPS)):
@@ -1155,9 +1193,8 @@ def phase_graph(card, model, vq):
         zero = torch.zeros(1, 3, device="cuda")
         calls = {}
         for mode, (dtype, bw) in GRAPH_MODES.items():
-            if bw and not emage.use_batched_wav(
-                    (seconds * 30 - cfg.seed_frames) // (cfg.pose_length - cfg.seed_frames), bs):
-                continue  # the gate turns batched_wav off: the bf16 cell again
+            if dtype is not None and (bs, seconds) != BF16_EMAGE_CELLS[0]:
+                continue  # bf16 at 128 x 60 s is emage-offline-bf16 (BENCHMARK.json)
 
             def call(eager, dtype=dtype, bw=bw):
                 if eager:  # emage_inference's loop with the eager step for every window
@@ -1333,7 +1370,7 @@ def phase_daemon(card, model, vq):
 
 
 def phase_rest(card):
-    """16. SequenceGenerator for CaMN and DisCo, the benchmark script, and entry()."""
+    """16. SequenceGenerator for CaMN and DisCo, and entry()."""
     from pantomatrix_tpu_torch.entry import entry
     from pantomatrix_tpu_torch.models.api import CamnAudioModel, DiscoAudioModel
     from pantomatrix_tpu_torch.models.configs import CamnAudioConfig, DiscoAudioConfig
@@ -1358,16 +1395,6 @@ def phase_rest(card):
         result[f"{name}_k2_launches"] = lstm_cuda.launches
         log(f"SequenceGenerator {name}: 8 clips in one batch-8 bucket, K2 launches "
             f"{lstm_cuda.launches}")
-    r = subprocess.run([sys.executable, "-m", "pantomatrix_tpu_torch.bench", "--reps", "2",
-                        "--iters", "1"], cwd=str(HERE), capture_output=True, text=True,
-                       timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"bench failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-    bench = json.loads(r.stdout.strip().splitlines()[-1])
-    if not bench["mfu"] < 1:
-        raise AssertionError(f"bench: mfu {bench['mfu']}")
-    result["bench"] = bench
-    log(f"bench: {json.dumps(bench)}")
     fn, args = entry()
     out = fn(*args)
     torch.cuda.synchronize()
@@ -3196,7 +3223,7 @@ def main():
                "daemon": phase_daemon(card, model, vq)}
     del model, vq
     torch.cuda.empty_cache()
-    # 16. SequenceGenerator, the benchmark script, entry()
+    # 16. SequenceGenerator, entry()
     mark("13-15 graph, streaming, daemon")
     serving["rest"] = phase_rest(card)
     mark("16 rest")

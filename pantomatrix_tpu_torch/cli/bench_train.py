@@ -31,8 +31,8 @@ ms a step for each family at the reference training configs, over every card of 
   per launch), which the counter cannot see in a ctypes launch. On the CPU the plain
   recurrence runs instead, the counter counts it, and nothing is added.
 - MFU: the global FLOP/s over ``cards`` times one card's dense bf16 peak
-  (``bench.PEAK_BF16_TFLOPS``), a per-card share; the run raises unless mfu < 1. On the
-  CPU there is no peak, and mfu is null.
+  (``utils/device.PEAK_BF16_TFLOPS``), a per-card share; the run raises unless mfu < 1.
+  On the CPU there is no peak, and mfu is null.
 - K2 launches a step (8 for CaMN, 4 for DisCo on the card), process 0's and each
   process's, and K1 launches (none).
 
@@ -134,11 +134,10 @@ def measure(args: dict) -> dict:
     process returns the line (``args``: the parsed flags as a dict)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..bench import peak_bf16_tflops
     from ..models.api import resolve_device
     from ..ops import lstm_cuda, vq_cuda
     from ..train.mesh import make_data_mesh
-    from ..utils.device import card_line
+    from ..utils.device import card_line, peak_bf16_tflops
 
     device = resolve_device(args["device"])
     on_card = device.type == "cuda"

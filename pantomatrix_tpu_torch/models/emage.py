@@ -211,16 +211,12 @@ def _decoder_halo(suite: EmageVQSuite) -> int:
                    for p in ("face", "upper", "hands", "lower"))
 
 
-def seed_decode_frames(seed_frames: int, suite: EmageVQSuite, dtype: torch.dtype,
-                       size: int) -> int:
-    """Frames of a ``size``-frame window's heads that its seed decode runs over. In float32
-    (the parity path) the whole window, as the JAX package decodes it. In a lower precision
-    the last ``seed_frames + _decoder_halo(suite)`` (11 for the published tokenizers), or
-    the whole window where it is shorter: the seed frames are then at least the halo away
-    from the tail's first frame, and their decode equals the whole window's up to float32
-    rounding of convolutions over other lengths, far below the seed's cast to ``dtype``."""
-    if dtype == torch.float32:
-        return size
+def seed_decode_frames(seed_frames: int, suite: EmageVQSuite, size: int) -> int:
+    """Frames of a ``size``-frame window's heads that its seed decode runs over: the last
+    ``seed_frames + _decoder_halo(suite)`` (11 for the published tokenizers), or the whole
+    window where it is shorter. The seed frames are then at least the halo away from the
+    tail's first frame, so their decode equals the whole window's up to float32 rounding of
+    convolutions over other lengths (on the card, bit for bit at 1, 8 and 128 rows)."""
     return min(size, seed_frames + _decoder_halo(suite))
 
 
@@ -232,7 +228,7 @@ def _window_step(model: EmageAudio, suite: EmageVQSuite, audio_slice, speaker_id
     cfg = model.config
     net_out = emage_forward(model, audio_slice, speaker_id, window_motion, window_mask,
                             audio_features)
-    n = seed_decode_frames(cfg.seed_frames, suite, window_motion.dtype, window_motion.shape[1])
+    n = seed_decode_frames(cfg.seed_frames, suite, window_motion.shape[1])
     heads = {k: v[:, -n:] for k, v in net_out.items()}
     decode = vq_decode(suite, **_select_decode_inputs(cfg, heads))
     last_motion = decode["all_motion4inference"][:, -cfg.seed_frames:, :]
@@ -299,9 +295,9 @@ def emage_inference(model: EmageAudio, audio: torch.Tensor, speaker_id: torch.Te
     """Sliding-window autoregressive generation over (bs, samples) audio.
 
     64-frame windows overlap by ``seed_frames``; the previous window's decoded tail seeds
-    the next window's unmasked slots (in a lower precision only the heads' last
-    ``seed_decode_frames`` frames are decoded for it); outputs are concatenated minus the
-    overlap, plus a remainder window when ``remain > seed_frames``.
+    the next window's unmasked slots (only the heads' last ``seed_decode_frames`` frames
+    are decoded for it); outputs are concatenated minus the overlap, plus a remainder
+    window when ``remain > seed_frames``.
 
     On CUDA tensors every full window replays a CUDA graph of ``_window_step``
     (``models/emage_graph.py``), captured on the model's first call at each batch and
@@ -347,9 +343,7 @@ def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, comput
     the full windows. Each window's kept frames are copied into outputs allocated at the
     full length before the next window runs, so the step may reuse its outputs. Spans
     (``utils/trace.py``): ``emage.window`` around each full window but not the copy of
-    its kept frames, its ``graph`` replayed, captured or eager; ``emage.remainder``. Both
-    carry ``seed_decode_frames``, the frames the step's seed decode runs over, set here so
-    that a replayed graph's window records it too."""
+    its kept frames, its ``graph`` replayed, captured or eager; ``emage.remainder``."""
     cfg = model.config
     masked_motion, mask, rounds, remain = prepare_ar_inputs(cfg, audio, masked_motion, mask)
     trace.annotate("emage.inference", rounds=rounds, remain=remain)
@@ -374,10 +368,8 @@ def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, comput
     total = rounds * stride + (pre + remain if remain > pre else 0)
     out = None
     last_motion = masked_motion[:, :pre]
-    decoded = lambda size: seed_decode_frames(pre, suite, masked_motion.dtype, size)
     for i in range(rounds):
-        with trace.span("emage.window", audio, index=i, graph="eager",
-                        seed_decode_frames=decoded(window)):
+        with trace.span("emage.window", audio, index=i, graph="eager"):
             net_out, last_motion = one_window(full_window_step, last_motion, i * stride,
                                               window, None if feats is None else feats[i])
         if out is None:
@@ -386,8 +378,7 @@ def _inference_loop(model, audio, speaker_id, suite, masked_motion, mask, comput
             out[k][:, i * stride:(i + 1) * stride] = v[:, :stride]
     if remain > pre:
         # the remainder-only case (rounds == 0) seeds from the prepared motion
-        with trace.span("emage.remainder", audio, frames=pre + remain,
-                        seed_decode_frames=decoded(pre + remain)):
+        with trace.span("emage.remainder", audio, frames=pre + remain):
             net_out, _ = one_window(_window_step, last_motion, rounds * stride, pre + remain)
         if out is None:
             return net_out

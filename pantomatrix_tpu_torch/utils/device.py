@@ -3,6 +3,10 @@ from __future__ import annotations
 
 import subprocess
 
+# dense bf16 tensor-core peak, TFLOP/s, by a substring of torch.cuda.get_device_name
+# (NVIDIA's H100 SXM data sheet; the SXM part names itself "H100 80GB HBM3")
+PEAK_BF16_TFLOPS = {"H100 80GB HBM3": 989.4, "H100 SXM": 989.4}
+
 
 def card_line() -> str:
     """The first card's name and power limit, as ``nvidia-smi --query-gpu=name,power.limit
@@ -14,4 +18,14 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-__all__ = ["card_line"]
+def peak_bf16_tflops(device_name: str) -> float:
+    """The dense bf16 peak of the card named ``device_name``; raises for a card not in
+    ``PEAK_BF16_TFLOPS``."""
+    for key, peak in PEAK_BF16_TFLOPS.items():
+        if key in device_name:
+            return peak
+    raise ValueError(f"no dense bf16 peak known for {device_name!r}; add it to "
+                     "PEAK_BF16_TFLOPS")
+
+
+__all__ = ["PEAK_BF16_TFLOPS", "card_line", "peak_bf16_tflops"]

@@ -27,6 +27,9 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "benchmark"))
+from harness.trace import merge  # noqa: E402  (the union of kernel intervals)
+
 CELLS = [(8, 20), (128, 60)]
 
 
@@ -49,21 +52,6 @@ def family(name: str) -> str:
     if "cat" in n or "copy" in n or "index" in n or "gather" in n or "scatter" in n:
         return "copy / cat / index"
     return "elementwise / reduce / other"
-
-
-def busy_us(intervals):
-    """Length of the union of [start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
 
 
 def main():
@@ -123,7 +111,8 @@ def main():
         for e in kernels:
             f = family(e.name)
             by_family[f] = by_family.get(f, 0.0) + e.time_range.elapsed_us()
-        busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+        intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+        busy = sum(end - start for start, end in merge(intervals))
         kernel_sum = sum(by_family.values())
         k1 = [e.time_range.elapsed_us() / 1e3
               for e in sorted(kernels, key=lambda e: e.time_range.start)

@@ -24,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from torch_profile_emage import REPO, busy_us, family
+from torch_profile_emage import REPO, family, merge
 
 CELLS = [8, 64]
 SAMPLES, SECONDS = 454400, 28.4
@@ -52,7 +52,8 @@ def profile_cell(model, bs: int, reps: int, g: torch.Generator, compute_dtype=No
     for e in kernels:
         f = family(e.name)
         by_family[f] = by_family.get(f, 0.0) + e.time_range.elapsed_us()
-    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    busy = sum(end - start for start, end in merge(intervals))
     kernel_sum = sum(by_family.values())
     median = float(np.median(walls))
     return {

@@ -44,7 +44,7 @@ EMAGE batch; full-width EmageAudioConfig() with dropout, random tokenizers). The
 is cli/bench_train's: one warm-up round, then --repeats rounds of --k steps, each ending
 in a synchronize and a loss read; the median ms a step. Each rung reports that, its delta
 from the rung before, the FLOPs of one step (FlopCounterMode), TFLOP/s and MFU against
-bench.peak_bf16_tflops, the device ms and kernels of one profiled step and the peak
+utils/device.peak_bf16_tflops, the device ms and kernels of one profiled step and the peak
 memory (these three on the card only), and its first step's losses. One row a rung is
 printed as it goes (a rung that fails leaves the earlier rows), then one JSON line. It
 runs on the card unless --device cpu is given.
@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_profile_emage import REPO, busy_us, family  # noqa: E402
+from torch_profile_emage import REPO, family, merge  # noqa: E402
 
 WARMUP = 3
 RUNGS = ("L0 optimizer only", "L1 +tokenizer targets", "L2 +shared WavEncoders",
@@ -107,7 +107,8 @@ def profile_cell(name: str, compute_dtype, steps: int, card: str) -> dict:
         f = family(e.name)
         by_family[f] = by_family.get(f, 0.0) + e.time_range.elapsed_us()
     kernel_sum = sum(by_family.values())
-    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    busy = sum(end - start for start, end in merge(intervals))
     lstm_bwd = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
                 and e.name.startswith("autograd::engine::evaluate_function")
                 and e.name.endswith("LstmLayerFunctionBackward")]
@@ -248,8 +249,8 @@ def run_ladder(model, suite, batch, rungs, k: int, repeats: int, compute_dtype=N
     card one more step runs under torch.profiler unless ``profile`` is False."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from pantomatrix_tpu_torch.bench import peak_bf16_tflops
     from pantomatrix_tpu_torch.train.optim import make_optimizer
+    from pantomatrix_tpu_torch.utils.device import peak_bf16_tflops
 
     device = next(model.parameters()).device
     on_card = device.type == "cuda"

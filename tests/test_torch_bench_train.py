@@ -39,6 +39,18 @@ def test_layer_flops_equal_the_counter_on_the_plain_forward(t, b, h):
     assert lstm_cuda.layer_flops(t, b, h, directions=1) == counter.get_total_flops()
 
 
+@pytest.mark.parametrize("name,peak", [("NVIDIA H100 80GB HBM3", 989.4), ("cpu", None)])
+def test_peak_bf16_tflops_by_card_name(name, peak):
+    """The dense bf16 peak that bench_train's MFU divides by; an unknown card raises."""
+    from pantomatrix_tpu_torch.utils.device import peak_bf16_tflops
+
+    if peak is None:
+        with pytest.raises(ValueError, match="no dense bf16 peak"):
+            peak_bf16_tflops(name)
+    else:
+        assert peak_bf16_tflops(name) == peak
+
+
 def test_cpu_layers_leave_the_launch_counters_alone():
     before = (lstm_cuda.launches, lstm_cuda.forward_flops)
     lstm_cuda.lstm_bidirectional(torch.zeros(4, 2, 64), torch.zeros(2, 32, 8), 8)

@@ -111,7 +111,7 @@ loaded = [m for m in sys.modules
 print(len(names), "modules")
 for want in ("ops.vq_cuda", "ops.lstm_cuda", "nn.lstm", "models.camn", "models.disco",
              "cli.test_emage", "cli.test_camn", "cli.test_disco", "models.emage_graph",
-             "serve", "serve_http", "cli.serve", "cli.bench_stream", "bench", "entry",
+             "serve", "serve_http", "cli.serve", "cli.bench_stream", "entry",
              "utils.device", "core.smplx", "core.motion_rep", "data.preprocess",
              "eval.dsp", "eval.metrics", "eval.mertic", "eval.fgd_encoder", "eval.pipeline",
              "eval.test_flow", "cli.evaluate", "train.losses", "train.optim", "train.steps",

@@ -522,45 +522,6 @@ def test_entry_runs_on_the_card_unless_asked():
         entry()
 
 
-def test_bench_counts_flops_by_composition(stacks):
-    """The bench's composed count (rounds x window step + remainder + final decode)
-    equals FlopCounterMode over the whole eager call."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from pantomatrix_tpu_torch.bench import count_flops
-
-    _, _, model, vq = stacks
-    audio = torch.from_numpy(np.stack(_waves(11, (17 * 16000 // 30 + 1,) * 2)))  # 2 + 5
-    spk = torch.zeros((2, 1), dtype=torch.long)
-    with FlopCounterMode(display=False) as counter:
-        out = emage.emage_inference(model, audio, spk, vq)
-        vq.decode(**emage._select_decode_inputs(model.config, out), get_global_motion=True,
-                  ref_trans=torch.zeros(2, 1, 3))
-    flops = count_flops(model, vq, audio, spk, out)
-    assert flops["rounds"] == 2 and flops["remainder_window"] > 0
-    assert flops["total"] == counter.get_total_flops() > 0
-
-
-def test_bench_result_line():
-    from pantomatrix_tpu_torch.bench import FLOP_COUNTER, peak_bf16_tflops, result_line
-
-    flops = {"total": 4.0e14, "window_step": 1, "rounds": 1, "remainder_window": 0,
-             "final_decode": 0}
-    kw = dict(walls=[2.0, 1.0, 3.0], wall_full=2.5, batch=128, seconds=60.0, frames=1800,
-              flops=flops, device_name="NVIDIA H100 80GB HBM3", card="NVIDIA H100 80GB HBM3, "
-              "700.00 W", compute_dtype=None, batched_wav=False, output_bytes=2e6, iters=4)
-    line = result_line(**kw)
-    assert line["wall_s_per_call"] == 2.0 and line["value"] == 128 * 60 / 2.0
-    assert (line["wall_s_per_call_min"], line["wall_s_per_call_max"]) == (1.0, 3.0)
-    assert line["mfu"] == pytest.approx(4e14 / 2.0 / 1e12 / 989.4)
-    assert line["flop_counter"] == FLOP_COUNTER and line["compute_dtype"] == "float32"
-    assert line["card"].endswith("700.00 W")
-    with pytest.raises(AssertionError, match="impossible MFU"):
-        result_line(**dict(kw, walls=[1e-3] * 3))
-    with pytest.raises(ValueError, match="no dense bf16 peak"):
-        peak_bf16_tflops("cpu")
-
-
 def test_bench_stream_protocol_on_the_cpu(stacks):
     from pantomatrix_tpu_torch.cli.bench_stream import bench_pool, pump_stats
 

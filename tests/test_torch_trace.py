@@ -136,16 +136,14 @@ def test_emage_offline_spans(frames, rounds, remainder):
     assert inf["parent"] is None
     assert inf["attrs"] == {"batch": 2, "rounds": rounds, "remain": frames - 2 - 6 * rounds}
     windows = by_name(got, "emage.window")
-    # float32: each window's seed decode runs over the whole window
-    assert [w["attrs"] for w in windows] == [{"index": i, "graph": "eager",
-                                              "seed_decode_frames": 8}
+    assert [w["attrs"] for w in windows] == [{"index": i, "graph": "eager"}
                                              for i in range(rounds)]
     assert all(w["parent"] == inf["id"] for w in windows)
     rem = by_name(got, "emage.remainder")
     assert len(rem) == int(remainder)
     if remainder:
         assert rem[0]["parent"] == inf["id"]
-        assert rem[0]["attrs"] == {"frames": 6, "seed_decode_frames": 6}
+        assert rem[0]["attrs"] == {"frames": 6}
     (dec,) = by_name(got, "emage.decode")
     assert dec["parent"] is None
     assert dec["attrs"] == {"frames": frames if remainder else 6 * rounds}
