@@ -227,9 +227,11 @@ K1_HEADLINE = (128 * 1800, 256, 256)
 # per-step latency floor
 K2_TEST_SHAPES = [(12, 8, 128), (9, 5, 96), (20, 16, 512),
                   (9, 1, 48), (9, 13, 96), (12, 128, 128), (5, 256, 512),
-                  # the tensor-core product: a ragged second tile (24 of 32 rows), H padded
-                  # to 64 (one 16-wide k block a warp pair, six warps idle), and H = 1024
-                  (5, 96, 512), (9, 256, 48), (5, 32, 1024)]
+                  # the tensor-core product: a ragged second tile (24 of 32 rows), H = 128
+                  # in 25-row CTAs (two 16-wide k blocks a half, six warps idle), and
+                  # H = 1024; at H = 48, whose halves are no whole 32-float segments for
+                  # the TMA copies of h, FFMA
+                  (5, 96, 512), (9, 200, 128), (9, 256, 48), (5, 32, 1024)]
 # cli.bench_train's CaMN/DisCo batch: 64 clips x 128 frames at 15 fps, 127 LSTM steps from
 # the WavEncoder (wav_encoder_out_len)
 K2_BENCH_SHAPE = (127, 64, 512)

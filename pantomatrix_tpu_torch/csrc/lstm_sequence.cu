@@ -70,11 +70,11 @@
 //    MT x NT tiles, so every element of W and h is loaded and split once a step. A
 //    thread's float4 of a row (k = 16 kb + 4 (lane % 4) + 0..3) feeds two k8 steps, k
 //    slots lane % 4 and lane % 4 + 4 taking its elements 0, 1 and then 2, 3 (the same
-//    permutation of k in A and B, so the product is unchanged). Rows are swizzled c ^
-//    4 (r % 2), so that the two rows of a quarter warp read different halves of the 8
-//    bank groups. The warps' partial sums then go, in a fixed order, through shared
-//    memory over the h tile (the region is widened where 8 x BT x 4U floats exceed the
-//    tile) and are summed, warp 0 to 7, into `part`. The split keeps the kernel within
+//    permutation of k in A and B, so the product is unchanged). Rows of W are swizzled
+//    c ^ 4 (r % 2), so that the two rows of a quarter warp read different halves of the 8
+//    bank groups (h: see the TMA copy below). The warps' partial sums then go, in a fixed
+//    order, through shared memory over the h tile (the region is widened where 8 x BT x
+//    4U floats exceed the tile) and are summed, warp 0 to 7, into `part`. The split keeps the kernel within
 //    chip_smoke.py phase 7's float64 criterion (the error against a float64 run at most
 //    twice the plain fp32 version's + 1e-6), which a single TF32 pass would not meet.
 //    The plan takes it from BT = 16 (B >= 32 at H = 512 for both directions). At B = 1
@@ -88,8 +88,27 @@
 //    it); a wgmma form, W's fragments in registers (W and the h tile's halves do not fit
 //    shared memory together), waits on each k chunk before its registers are free and
 //    measured slower.
-//  * The h tile is loaded in two cp.async groups, chunks [0, HC/2) and [HC/2, HC), and
-//    the product starts on the first half while the second is in flight.
+//  * The h tile arrives in two halves, chunks [0, HC/2) and [HC/2, HC), and the product
+//    starts on the first half while the second is in flight. For the FFMA product each
+//    half is a cp.async group of 16-byte copies (BT x HC/2 of them).
+//  * For the tensor-core product (which needs H % 64 == 0) each half is one 3-D TMA copy
+//    (a tensor map over out: 32 floats, rows (t, b), 32-float segments of the D*H
+//    columns, in the 128-byte swizzle) that reports its bytes to that half's mbarrier.
+//    At (421, 64, 512) 4,096 cp.async a step took 3.4 us to land the tile and the two
+//    copies take 1.7 (PERF.md). Thread-block clusters that multicast the copy, so
+//    that each cluster reads the tile from L2 once, landed it no sooner (measured): the
+//    count of copies set the pace, not the L2 read. The tile is [segment][BT rows][32
+//    floats], each 128-byte row swizzled by (row % 8); mma column g of an 8-row tile reads
+//    row perm(g) = g / 2 + 4 (g % 2), so the two rows a quarter warp reads sit in opposite
+//    halves of the bank groups, and the warps' partial sums go to that row. Each output's
+//    sum is the same, over the same values in the same order, as with any layout of the
+//    tile. Rows past row_end (a ragged tile) arrive with whatever out holds there, or zeros
+//    past its end; they feed only products that are never read. A copy overwrites the h
+//    region, which also holds the warps' partial sums: it is issued by thread 0 after the
+//    CTA barrier that ends the previous tile and, at a step's first tile, after the
+//    counter's acquire; its proxy fence then orders the generic accesses (every CTA's h_t
+//    stores, ordered before the counter's release, and this CTA's reads and partial sums in
+//    the h region) before the async proxy's copies.
 //  * Every sum is taken in a fixed order (ffma: chunk by chunk, x y z w within a chunk,
 //    then a fixed shuffle tree; mma: the tensor cores' k steps in a fixed sequence, then
 //    the warps' partials 0 to 7): no atomics on values, so two calls give bitwise equal
@@ -100,6 +119,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -157,6 +177,57 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
+// --- the tensor-core product's h tile: mbarrier and TMA primitives ---
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// orders this thread's generic-proxy accesses (global and shared) before the async-proxy
+// accesses that follow it in causality order, and the other way round
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a wait longer than
+// kSpinLimit traps, as the counter's does
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > kSpinLimit) __trap();
+  }
+}
+// the box of the 3-D tensor map at (c0, c1, c2) to `dst`, completing on the mbarrier `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(smem_u32(bar)) : "memory");
+}
+
+// the row of an 8-row tile that mma column g reads (see the note at the top)
+__device__ __forceinline__ int mma_row(int g) { return (g >> 1) | ((g & 1) << 2); }
+
+// the float4 of tile row bl, chunk c (of HC) in the TMA's layout: segment c / 8 holds BT
+// rows of 128 bytes, chunk c % 8 of row bl at (c % 8) ^ (bl % 8)
+__device__ __forceinline__ int tma_hs(int BT, int bl, int c) {
+  return ((c >> 3) * BT + bl) * 8 + ((c & 7) ^ (bl & 7));
+}
+
 // 4 consecutive floats of a row from device memory, zero past `n`
 __device__ __forceinline__ float4 load4(const float* src, int k, int n, bool aligned,
                                         bool cg) {
@@ -204,7 +275,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // and the block's sum is then added to acc in fp32 (round to nearest), so that the
 // tensor core's own accumulation, which is not rounded to nearest, never adds into the
 // running sum. Built with -DLSTM_ONE_TF32_PASS (a profiling aid, wrong in the last bits)
-// it issues the hi . hi products alone.
+// it issues the hi . hi products alone. hs is in the TMA's layout and column g reads row
+// mma_row(g) (see the note at the top).
 template <int MT, int NT>
 __device__ __forceinline__ void mma_blocks(const float4* ws, const float4* hs, int HC, int kb0,
                                            int kb1, int warp, int lane,
@@ -215,8 +287,7 @@ __device__ __forceinline__ void mma_blocks(const float4* ws, const float4* hs, i
     uint32_t bhi[2][NT][2], blo[2][NT][2];  // [k8 step][n tile][slot q, q + 4]
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const int r = 8 * nt + g;
-      const float4 v = hs[r * HC + swz<true>(r, c)];
+      const float4 v = hs[tma_hs(8 * NT, 8 * nt + mma_row(g), c)];
       split_tf32(v.x, bhi[0][nt][0], blo[0][nt][0]);  // k slots q and q + 4 of step 0 take
       split_tf32(v.y, bhi[0][nt][1], blo[0][nt][1]);  // elements 0 and 1, of step 1 2 and 3
       split_tf32(v.z, bhi[1][nt][0], blo[1][nt][0]);
@@ -254,9 +325,9 @@ __device__ __forceinline__ void mma_blocks(const float4* ws, const float4* hs, i
   }
 }
 
-// column of gate row r (of 64) in row n of a warp's partial sums: r ^ 8 ((n / 2) % 4), so
-// that the fragments' stores of a warp hit 32 different banks
-__device__ __forceinline__ int red_col(int n, int r) { return r ^ ((n & 6) << 2); }
+// column of gate row r (of 64) in row n of a warp's partial sums: r ^ 8 (n % 4), so that
+// the fragments' stores of a warp (rows mma_row) hit 32 different banks
+__device__ __forceinline__ int red_col(int n, int r) { return r ^ ((n & 3) << 3); }
 
 // One round of the reduce-scatter of V sums over the K_SPLIT lanes of a tile (lane bits
 // 0 .. log2 K_SPLIT - 1): at distance m = 2^ROUND a lane keeps one half of its sums
@@ -306,15 +377,19 @@ __device__ long long g_phase_clocks[6];
 #endif
 
 // RT x UT: the FFMA product's register tile (NT = 0); NT: the tensor-core product's
-// 8-row tiles of h (RT = UT = 0; U = 16, so 4 tiles of 16 gate rows; resident W only)
+// 8-row tiles of h (RT = UT = 0; U = 16, so 4 tiles of 16 gate rows; resident W only;
+// the h tile by TMA, h_map)
 template <bool RESIDENT, int RT, int UT, int NT>
-__global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_layer_kernel(const Layer p, const __grid_constant__ CUtensorMap h_map) {
   constexpr bool MMA = NT > 0;
   constexpr int MT = 4;  // the tensor-core product's tiles of 16 of the 64 gate rows
   static_assert(!MMA || RESIDENT, "the tensor-core product reads a resident W");
   // sums a thread holds: index (q * UT + e) * 4 + g for row q, unit e, gate g
   constexpr int V = 4 * UT * RT;
-  extern __shared__ float4 smem4[];
+  extern __shared__ float4 smem_raw[];
+  // MMA: the layout starts on a 1024-byte boundary, as the TMA's 128-byte swizzle wants
+  float4* smem4 = MMA ? smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024 / 16 : smem_raw;
   const int U = p.U, R = 4 * U, BT = p.BT, HC = p.HC, H = p.H, B = p.B, T = p.T;
   const int four_h = 4 * H, xp_row = p.D * four_h, out_row = p.D * H;
   const int j0 = blockIdx.x * U;
@@ -330,10 +405,13 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
   // the h tile's region also holds the tensor-core product's partial sums of the warps
   const int h_region = MMA ? max(BT * HC, WARPS * BT * U) : BT * HC;  // float4s
   float4* ws = smem4;                                  // [R][HC], swizzled (if RESIDENT)
-  float4* hs = ws + (RESIDENT ? R * HC : 0);           // [BT][HC], swizzled
+  // [BT][HC] swizzled; MMA: [HC / 8][BT][8], tma_hs
+  float4* hs = ws + (RESIDENT ? R * HC : 0);
   float* part = reinterpret_cast<float*>(hs + h_region);  // [BT][R], the gate products
   float* xs = part + BT * R;                           // [2][BT][R]
   float* cs = xs + 2 * BT * R;                         // [BR][U]
+  // MMA: the two halves' mbarriers, 8-byte aligned since U = 16 makes BR * U even
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cs + p.BR * U);
 
   const int tid = threadIdx.x;
   constexpr int RT1 = RT > 0 ? RT : 1, UT1 = UT > 0 ? UT : 1;
@@ -359,6 +437,15 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
     }
   }
   for (int idx = tid; idx < p.BR * U; idx += THREADS) cs[idx] = 0.f;
+  int h_parity = 0;  // MMA: the parity of the mbarriers' current phase (one per h tile)
+  if constexpr (MMA) {
+    if (tid == 0) {
+      mbar_init(&bars[0], 1);
+      mbar_init(&bars[1], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the barriers exist before any thread waits on them
+  }
 
   // work item n = step s, tile i (n = s * ntile + i); its xp goes to half n % 2 of xs
   auto prefetch = [&](int n) {
@@ -404,27 +491,49 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
     for (int i = 0; i < ntile; ++i) {
       const int n = s * ntile + i;
       const int tb = row0 + i * BT;
-      // h_{t_prev} of the tile's rows, all in flight at once where aligned, in two groups
-      // (chunks [0, HC/2) and [HC/2, HC)) so the product starts on the first half
-      for (int part_k = 0; part_k < 2; ++part_k) {
-        for (int idx = tid; s > 0 && idx < BT * half_hc; idx += THREADS) {
-          const int bl = idx / half_hc, c = part_k * half_hc + idx % half_hc, b = tb + bl;
-          const float* src =
-              p.out + (static_cast<size_t>(t_prev) * B + b) * out_row + d * H + 4 * c;
-          float4* dst = hs + bl * HC + swz<MMA>(bl, c);
-          if (aligned) {
-            cp_async16_zfill(dst, b < row_end && 4 * c < H ? src : p.out,
-                             b < row_end && 4 * c < H ? 16 : 0);
-          } else {
-            *dst = b < row_end ? load4(src, 4 * c, H, false, true) :
-                                 make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (MMA) {
+        // h_{t_prev} of the tile's rows: one copy for each half of H. The CTA is done with
+        // its h region (the CTA barrier that ended the previous tile), and every CTA of the
+        // batch group has written h_{t_prev} (the counter), so the copies may start.
+        if (s > 0 && tid == 0) {
+          const int seg_half = HC / 16;  // 32-float segments in each half of H
+          // the proxy fence on the causality path from the generic accesses (h_{t_prev}'s
+          // stores, ordered before the counter's release and seen by this thread's acquire;
+          // this CTA's reads and partial sums in hs, before its barrier) to the copies
+          fence_proxy_async();
+          for (int part_k = 0; part_k < 2; ++part_k) {
+            mbar_expect_tx(&bars[part_k], BT * HC * 8);  // bytes of half the tile
+            tma_load(hs + part_k * seg_half * BT * 8, &h_map, 0, t_prev * B + tb,
+                     d * H / 32 + part_k * seg_half, &bars[part_k]);
           }
         }
-        cp_async_commit();
+      } else {
+        // h_{t_prev} of the tile's rows, all in flight at once where aligned, in two groups
+        // (chunks [0, HC/2) and [HC/2, HC)) so the product starts on the first half
+        for (int part_k = 0; part_k < 2; ++part_k) {
+          for (int idx = tid; s > 0 && idx < BT * half_hc; idx += THREADS) {
+            const int bl = idx / half_hc, c = part_k * half_hc + idx % half_hc, b = tb + bl;
+            const float* src =
+                p.out + (static_cast<size_t>(t_prev) * B + b) * out_row + d * H + 4 * c;
+            float4* dst = hs + bl * HC + swz<MMA>(bl, c);
+            if (aligned) {
+              cp_async16_zfill(dst, b < row_end && 4 * c < H ? src : p.out,
+                               b < row_end && 4 * c < H ? 16 : 0);
+            } else {
+              *dst = b < row_end ? load4(src, 4 * c, H, false, true) :
+                                   make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+          cp_async_commit();
+        }
       }
       prefetch(n + 1);
-      cp_async_wait<2>();  // this item's xp and the first half of h have landed
+      // this item's xp and (but for MMA, whose h is no cp.async group) the first half of h
+      cp_async_wait<MMA ? 1 : 2>();
       __syncthreads();
+      if constexpr (MMA) {
+        if (s > 0) mbar_wait(&bars[0], h_parity);  // the first half of h
+      }
       PHASE_MARK(1);
       if constexpr (MMA) {
         if (s > 0) {
@@ -438,8 +547,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
               for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
           const int kb_half = HC / 8;  // 16-wide k blocks in each half of H
           mma_blocks<MT, NT>(ws, hs, HC, 0, kb_half, warp, lane, acc);
-          cp_async_wait<1>();  // the second half of h
-          __syncthreads();
+          mbar_wait(&bars[1], h_parity);  // the second half of h
+          h_parity ^= 1;
           mma_blocks<MT, NT>(ws, hs, HC, kb_half, 2 * kb_half, warp, lane, acc);
           __syncthreads();  // every warp is done with hs: its partial sums go there
           float* red = reinterpret_cast<float*>(hs) + warp * BT * R;  // [BT][R], red_col
@@ -450,7 +559,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
               for (int k = 0; k < 4; ++k) {  // c0..c3: rows g, g, g + 8, g + 8
-                const int r = 16 * mt + g + 8 * (k >> 1), bl = 8 * nt + 2 * q + (k & 1);
+                const int r = 16 * mt + g + 8 * (k >> 1), col = 2 * q + (k & 1);
+                const int bl = 8 * nt + mma_row(col);
                 red[bl * R + red_col(bl, r)] = acc[mt][nt][k];
               }
           __syncthreads();
@@ -559,14 +669,15 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_layer_kernel(const Layer p) {
 }
 
 // The shared memory of one CTA: W's slice if resident, the h tile (for the tensor-core
-// product at least the 8 warps' partial sums, 8 x BT x 4U floats), the gate products,
-// the double-buffered xp tile and the cell state
+// product at least the 8 warps' partial sums, 8 x BT x 4U floats), the gate products, the
+// double-buffered xp tile, the cell state and, for the tensor-core product, the two
+// halves' mbarriers and the room to start the layout on a 1024-byte boundary
 size_t smem_bytes(int H, int U, int BT, int BR, bool resident, bool mma) {
   const size_t hc = static_cast<size_t>(((H + 3) / 4 + 7) / 8 * 8);
   const size_t r = 4 * static_cast<size_t>(U);
   const size_t h_tile = BT * hc, partials = WARPS * static_cast<size_t>(BT) * U;  // float4s
   return 16 * ((resident ? r * hc : 0) + (mma && partials > h_tile ? partials : h_tile)) +
-         4 * (3 * BT * r + static_cast<size_t>(BR) * U);
+         4 * (3 * BT * r + static_cast<size_t>(BR) * U) + (mma ? 16 + 1008 : 0);
 }
 
 // rows and units of a thread's register tile for a tile of BT rows
@@ -585,7 +696,51 @@ const void* mma_kernel(int U, int BT) {
   if (U != 16) return nullptr;
   return BT == 8 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 1>)
        : BT == 16 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 2>)
-       : BT == 32 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 4>) : nullptr;
+       : BT == 32 ? reinterpret_cast<const void*>(lstm_layer_kernel<true, 0, 0, 4>)
+                  : nullptr;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda; as
+// csrc/vq_nearest_code.cu)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The h tile's tensor map of out (T, B, D*H): 32 floats, then the T * B rows, then the
+// D*H / 32 segments of 32 floats; boxes of BT rows x `segments` segments, in the 128-byte
+// swizzle, zero past the edges
+cudaError_t make_h_map(CUtensorMap* map, const float* out, int T, int B, int H, int D, int BT,
+                       int segments) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {32, static_cast<cuuint64_t>(T) * B,
+                              static_cast<cuuint64_t>(D) * H / 32};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * H * 4, 128};  // bytes
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(BT),
+                             static_cast<cuuint32_t>(segments)};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(out),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -606,13 +761,14 @@ int lstm_device_limits(int* num_sms, int* smem_per_block) {
 // One LSTM layer of D directions (see the note at the top). xp (T, B, D*4H), w (D, 4H, H),
 // out (T, B, D*H): float32, row-major, contiguous, on the current device; counters:
 // D * ceil(B / BR) zeroed int32. The plan (U, BT, BR, resident, mma) must keep every CTA
-// co-resident; BT is 4, 8, 16 or 32. The FFMA product (mma = 0) needs (U / UT) * (BT /
-// RT) to divide 256 into at most 32 (RT = 8 rows, 4 where BT = 4; UT = 2 units where BT =
-// 32, else 1); the tensor-core product (mma = 1) a resident W, U = 16 and BT in {8,
-// 16, 32}. The shared memory it takes is smem_bytes(), which ops/lstm_cuda.py
-// mirrors. Launches one cooperative kernel on `stream` without synchronising and
-// returns its error (0 = success; cudaErrorCooperativeLaunchTooLarge when the grid
-// cannot be co-resident, e.g. on a shared card).
+// co-resident; BT is 4, 8, 16 or 32. The FFMA product (mma = 0) needs (U / UT) * (BT / RT)
+// to divide 256 into at most 32 (RT = 8 rows, 4 where BT = 4; UT = 2 units where BT = 32,
+// else 1); the tensor-core product (mma = 1) a resident W, U = 16, BT in {8, 16, 32} and
+// H % 64 == 0 (its TMA copies take each half of H in whole 32-float segments). The shared
+// memory it takes is smem_bytes(), which ops/lstm_cuda.py mirrors. Launches one
+// cooperative kernel on `stream` without synchronising and returns its error (0 =
+// success; cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident, e.g. on
+// a shared card).
 int lstm_layer(const float* xp, const float* w, float* out, int* counters, int T, int B,
                int H, int D, int U, int BT, int BR, int resident, int mma,
                cudaStream_t stream) {
@@ -623,7 +779,8 @@ int lstm_layer(const float* xp, const float* w, float* out, int* counters, int T
   const void* fn = mma ? (resident ? mma_kernel(U, BT) : nullptr)
                  : ut == 2 ? kernel_for<8, 2>(resident != 0)
                  : rt == 8 ? kernel_for<8, 1>(resident != 0) : kernel_for<4, 1>(resident != 0);
-  if (D < 1 || D > 2 || BR < 1 || fn == nullptr || (!mma && (split < 1 || split > 32)))
+  if (D < 1 || D > 2 || BR < 1 || fn == nullptr || (!mma && (split < 1 || split > 32)) ||
+      (mma && H % 64 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Layer p{xp, w, out, counters, T, B, H, D, U, BT, BR, (H + U - 1) / U,
           ((H + 3) / 4 + 7) / 8 * 8};
@@ -631,8 +788,13 @@ int lstm_layer(const float* xp, const float* w, float* out, int* counters, int T
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
+  alignas(64) CUtensorMap h_map = {};  // read by the tensor-core variants only
+  if (mma) {
+    e = make_h_map(&h_map, out, T, B, H, D, BT, H / 64);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid(p.NJ, (B + BR - 1) / BR, D);
-  void* args[] = {&p};
+  void* args[] = {&p, &h_map};
   e = cudaLaunchCooperativeKernel(fn, grid, dim3(THREADS), args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

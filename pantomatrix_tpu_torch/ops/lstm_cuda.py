@@ -40,9 +40,10 @@ which :func:`plan_layer` picks by shape (``LayerPlan.product``; no flag or setti
   :func:`lstm_bidirectional_split_plain` is this arithmetic in plain PyTorch, a model
   for the tests and ``chip_smoke.py`` that the port's path never calls. Taken where
   W_hh's slice is resident, the CTA has 16 units (64 gate rows) and its tile has at
-  least ``MMA_MIN_TILE_ROWS`` = 16 batch rows, two of the mma's N: CaMN/DisCo's layers at
-  B >= 32 (H = 512, both directions), the training forward and ``cli.bench_train`` at
-  B = 64.
+  least ``MMA_MIN_TILE_ROWS`` = 16 batch rows, two of the mma's N, and H % 64 == 0
+  (the h tile then arrives by two TMA copies a step, each half of H in whole 32-float
+  segments, rather than by cp.async): CaMN/DisCo's layers at B >= 32 (H = 512, both
+  directions), the training forward and ``cli.bench_train`` at B = 64.
 - ``"ffma"``: on the fp32 pipe, everywhere else: B = 1 to 16 at H = 512 (evaluation,
   serving, CaMN/DisCo at batch 8), where the per-step hand-off sets the pace and a 4-row
   tile would fill half of the mma, and the non-resident plans (H = 1024 in both
@@ -75,6 +76,9 @@ MMA_UNITS = 16  # units per CTA of the tensor-core product: 64 gate rows, 4 mma 
 # the tile rows from which it is taken: 8-row tiles were faster, but (20, 16, 512) (an
 # 8-row tile) missed chip_smoke.py phase 7's atol 1e-5 against the plain version (PERF.md)
 MMA_MIN_TILE_ROWS = 16
+# lstm_layer's C signature: xp, w, out, counters; T, B, H, D, U, BT, BR, resident, mma;
+# stream
+LAYER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 _fn = None
 
@@ -112,22 +116,26 @@ def smem_bytes(hidden: int, units: int, tile_rows: int, rows: int, resident: boo
     """Shared memory of one CTA: the swizzled W slice (if resident) and h tile, each row
     padded to a multiple of 32 floats (for the tensor-core product, at least the 8 warps'
     partial sums of the tile, which reuse the h tile's room), the tile's gate products,
-    the double-buffered xp tile and the cell state. Mirrors ``smem_bytes`` in the CUDA
-    source."""
+    the double-buffered xp tile, the cell state and, for the tensor-core product, the
+    two mbarriers of its TMA copies and the room to start on a 1024-byte boundary.
+    Mirrors ``smem_bytes`` in the CUDA source."""
     hc = _cdiv(_cdiv(hidden, 4), 8) * 8  # float4 chunks per row, a multiple of 8
     r = 4 * units
     h_region = tile_rows * hc
     if product == "mma":
         h_region = max(h_region, WARPS * tile_rows * units)
     return 16 * ((r * hc if resident else 0) + h_region) + \
-        4 * (3 * tile_rows * r + rows * units)
+        4 * (3 * tile_rows * r + rows * units) + (1024 if product == "mma" else 0)
 
 
 def mma_fits(hidden: int, units: int, tile_rows: int, rows: int, resident: bool,
              smem_per_block: int) -> bool:
     """Whether the kernel has a tensor-core variant for this cut and its shared memory
-    fits: a resident W slice, ``MMA_UNITS`` units and tiles of 8, 16 or 32 rows."""
+    fits: a resident W slice, ``MMA_UNITS`` units, tiles of 8, 16 or 32 rows, and H a
+    multiple of 64, so that each half of H is whole 32-float segments for its TMA
+    copies."""
     return resident and units == MMA_UNITS and tile_rows in (8, 16, 32) and \
+        hidden % 64 == 0 and \
         smem_bytes(hidden, units, tile_rows, rows, resident, "mma") <= smem_per_block
 
 
@@ -255,8 +263,7 @@ def _kernel():
     if _fn is None:
         lib = build.load("lstm_sequence")
         fn = lib.lstm_layer
-        # xp, w, out, counters; T, B, H, D, U, BT, BR, resident, mma; stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = LAYER_ARGTYPES
         fn.restype = ctypes.c_int
         lib.lstm_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.lstm_device_limits.restype = ctypes.c_int

@@ -177,13 +177,14 @@ def test_plan_layer_keeps_w_hh_resident_at_the_path_shapes():
 def test_plan_layer_takes_the_tensor_cores_where_the_tile_fills_the_mma(b, h, d):
     """The product follows the shape alone: split TF32 on the tensor cores where W_hh's
     slice is resident, the CTA has 16 units (64 gate rows), its tile has at least
-    MMA_MIN_TILE_ROWS batch rows and the warps' partial sums fit shared memory; FFMA
-    otherwise. The cut of the card does not depend on the product."""
+    MMA_MIN_TILE_ROWS batch rows, H is a multiple of 64 (the TMA copies of h take each
+    half of H in whole 32-float segments) and the warps' partial sums fit shared memory;
+    FFMA otherwise. The cut of the card does not depend on the product."""
     plan = lstm_cuda.plan_layer(421, b, h, d, H100_SMS, H100_SMEM)
     assert plan.product in ("ffma", "mma")
     mma_smem = lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows, plan.rows, plan.resident,
                                     "mma")
-    want = plan.resident and plan.units == 16 and \
+    want = plan.resident and plan.units == 16 and h % 64 == 0 and \
         plan.tile_rows >= lstm_cuda.MMA_MIN_TILE_ROWS and mma_smem <= H100_SMEM
     assert (plan.product == "mma") == want
     ffma_plan = plan._replace(product="ffma", smem_bytes=lstm_cuda.smem_bytes(
@@ -212,8 +213,170 @@ def test_plan_layer_product_at_the_path_shapes(t, b, h, d, product):
     plan = lstm_cuda.plan_layer(t, b, h, d, H100_SMS, H100_SMEM)
     assert plan.product == product
     if (b, h) == (64, 512):  # the partial sums fit in the h tile's room: no more memory
+        # than the FFMA layout's but the TMA copies' two mbarriers and 1,024-byte alignment
         assert plan.smem_bytes == lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows,
-                                                       plan.rows, plan.resident)
+                                                       plan.rows, plan.resident) + 1024
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("h", [48, 96, 128, 192, 512])
+@pytest.mark.parametrize("b", [1, 5, 8, 13, 32, 64, 128, 200, 256])
+def test_plan_layer_takes_the_tensor_cores_only_where_tma_cuts_h(b, h, d):
+    """The tensor-core variants take h by TMA copies of whole 32-float segments, half of
+    H a copy: their plans have H % 64 == 0 and the TMA layout's memory (two mbarriers and
+    the room to align the tile to 1,024 bytes) within the card's; every other plan keeps
+    the FFMA layout."""
+    plan = lstm_cuda.plan_layer(421, b, h, d, H100_SMS, H100_SMEM)
+    ffma = lstm_cuda.smem_bytes(h, plan.units, plan.tile_rows, plan.rows, plan.resident)
+    if h % 64:
+        assert plan.product == "ffma"
+    if plan.product == "mma":
+        assert h % 64 == 0 and plan.resident and plan.units == lstm_cuda.MMA_UNITS
+        assert lstm_cuda.mma_fits(h, plan.units, plan.tile_rows, plan.rows, plan.resident,
+                                  H100_SMEM)
+        assert ffma + 1024 <= plan.smem_bytes <= H100_SMEM
+    else:
+        assert plan.smem_bytes == ffma
+
+
+@pytest.mark.parametrize("h", [48, 64, 96, 100, 128, 192, 320, 512, 1024])
+def test_mma_fits_needs_h_in_whole_32_float_halves(h):
+    fits = lstm_cuda.mma_fits(h, lstm_cuda.MMA_UNITS, 16, 16, True, 1 << 30)
+    assert fits == (h % 64 == 0)
+
+
+def _c_function(src: str, signature: str) -> str:
+    """The text of a top-level C function of the CUDA source, from its signature to its
+    closing brace at the start of a line, or to the end of its line for a one-line body."""
+    start = src.index(signature)
+    line = src[start:src.index("\n", start) + 1]
+    if line.rstrip().endswith("}"):
+        return line
+    return src[start:src.index("\n}\n", start) + 3]
+
+
+def _host_program(tmp_path, body: str, main: str):
+    """Compiles ``body`` (functions of the CUDA source, the device ones as host inline
+    functions) and ``main`` as host C++; returns the executable."""
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler builds the source's functions for this check"
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    consts = "\n".join(re.findall(r"^constexpr int (?:THREADS|WARPS) = [^;]+;", src, re.M))
+    prog = tmp_path / "prog.cpp"
+    prog.write_text("#include <cstddef>\n#include <cstdio>\n#define __device__\n"
+                    "#define __forceinline__ inline\n" + consts + "\n" + body + main)
+    exe = tmp_path / "prog"
+    subprocess.run([cxx, "-std=c++17", "-o", str(exe), str(prog)], check=True)
+    return exe
+
+
+def test_smem_bytes_mirrors_the_cuda_source(tmp_path):
+    """The source's smem_bytes, compiled as host C++ with its constants, gives the
+    wrapper's number at every cut: both products, residency, ragged H."""
+    import subprocess
+
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    cases = [(h, u, bt, br, res, mma) for h in (48, 96, 100, 512, 1024)
+             for u in (8, 16, 64) for bt in (4, 8, 16, 32) for br in (1, 13, 32, 64)
+             for res in (0, 1) for mma in (0, 1)]
+    exe = _host_program(tmp_path, _c_function(src, "size_t smem_bytes("), r"""
+int main() {
+  int h, u, bt, br, res, mma;
+  while (scanf("%d %d %d %d %d %d", &h, &u, &bt, &br, &res, &mma) == 6)
+    printf("%zu\n", smem_bytes(h, u, bt, br, res, mma));
+}
+""")
+    out = subprocess.run([str(exe)], input="\n".join(" ".join(map(str, c)) for c in cases),
+                         capture_output=True, text=True, check=True).stdout.split()
+    want = [lstm_cuda.smem_bytes(h, u, bt, br, bool(res), "mma" if mma else "ffma")
+            for h, u, bt, br, res, mma in cases]
+    assert [int(x) for x in out] == want
+
+
+@pytest.mark.parametrize("hc", [16, 32, 128])
+@pytest.mark.parametrize("bt", [8, 16, 32])
+def test_tma_layout_of_h_is_a_bank_conflict_free_permutation(tmp_path, bt, hc):
+    """The source's tma_hs, mma_row and red_col, compiled as host C++: the TMA layout
+    holds each float4 of the BT x HC tile once, in 1,024-byte segments; the 8 lanes of a
+    quarter warp read 8 different bank groups in mma_blocks; and a warp's stores of its
+    partial sums hit 32 different banks."""
+    import subprocess
+
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    body = "\n".join(_c_function(src, sig) for sig in (
+        "__device__ __forceinline__ int mma_row(", "__device__ __forceinline__ int tma_hs(",
+        "__device__ __forceinline__ int red_col("))
+    exe = _host_program(tmp_path, body, r"""
+int main() {
+  int bt, hc;
+  if (scanf("%d %d", &bt, &hc) != 2) return 1;
+  for (int bl = 0; bl < bt; ++bl)
+    for (int c = 0; c < hc; ++c) printf("hs %d %d %d\n", bl, c, tma_hs(bt, bl, c));
+  for (int g = 0; g < 8; ++g) printf("row %d %d\n", g, mma_row(g));
+  for (int n = 0; n < bt; ++n)
+    for (int r = 0; r < 64; ++r) printf("red %d %d %d\n", n, r, red_col(n, r));
+}
+""")
+    out = subprocess.run([str(exe)], input=f"{bt} {hc}", capture_output=True, text=True,
+                         check=True).stdout.split("\n")
+    hs, row, red = {}, {}, {}
+    for line in filter(None, out):
+        kind, *v = line.split()
+        v = tuple(map(int, v))
+        {"hs": hs, "row": row, "red": red}[kind][v[:-1]] = v[-1]
+    # a permutation of the tile; each 32-float segment of BT rows starts on 1,024 bytes
+    assert sorted(hs.values()) == list(range(bt * hc))
+    assert all(hs[bl, 8 * seg] // (8 * bt) == seg and (hs[0, 8 * seg] * 16) % 1024 == 0
+               for bl in range(bt) for seg in range(hc // 8))
+    assert sorted(row[g,] for g in range(8)) == list(range(8))
+    for nt in range(bt // 8):
+        for kb in range(hc // 4):
+            for quarter in range(4):  # lanes 8 quarter .. 8 quarter + 7: g, q = lane / 4, % 4
+                lanes = range(8 * quarter, 8 * quarter + 8)
+                groups = {hs[8 * nt + row[lane >> 2,], 4 * kb + (lane & 3)] % 8 for lane in lanes}
+                assert len(groups) == 8
+    for nt in range(bt // 8):
+        for mt in range(4):
+            for k in range(4):  # one store of the warp: fragment element k of every lane
+                banks = set()
+                for lane in range(32):
+                    g, q = lane >> 2, lane & 3
+                    r = 16 * mt + g + 8 * (k >> 1)
+                    bl = 8 * nt + row[2 * q + (k & 1),]
+                    banks.add((bl * 64 + red[bl, r]) % 32)
+                assert len(banks) == 32
+
+
+def test_lstm_layer_signature_matches_the_wrapper_argtypes():
+    """lstm_layer's C parameters, in order, against LAYER_ARGTYPES: four pointers, the nine
+    ints of the shape and plan, the stream."""
+    import ctypes
+
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    params = re.search(r"int lstm_layer\(([^)]*)\)", src).group(1)
+    kinds = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p) else ctypes.c_int
+             for p in (" ".join(p.split()) for p in params.split(","))]
+    assert kinds == lstm_cuda.LAYER_ARGTYPES
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names[-2:] == ["mma", "stream"]
+
+
+def test_kernel_source_takes_h_by_tma_in_the_tensor_core_variants():
+    """The tensor-core variants' h tile: 3-D TMA copies in the 128-byte swizzle, completing
+    on mbarriers with their bytes, after a proxy fence; one cooperative launch for every
+    variant, refused where H is no multiple of 64 for the tensor-core product."""
+    src = (build.CSRC_DIR / "lstm_sequence.cu").read_text()
+    assert "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes " \
+        in _c_function(src, "__device__ __forceinline__ void tma_load(")
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in _c_function(src, "cudaError_t make_h_map(")
+    assert "mbarrier.arrive.expect_tx" in src and "mbarrier.try_wait.parity" in src
+    assert "fence.proxy.async;" in src and "fence.mbarrier_init" in src
+    launch = _c_function(src, "int lstm_layer(")
+    assert "cudaLaunchCooperativeKernel" in launch and "cudaLaunchKernelEx" not in launch
+    assert "mma && H % 64 != 0" in launch and "make_h_map" in launch
 
 
 def test_plan_layer_raises_where_nothing_fits():
